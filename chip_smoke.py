@@ -20,19 +20,24 @@ Phases:
 1. a CUDA device is visible; prints the card's name and power limit;
 2. builds both CUDA kernels from permon_tpu_torch/csrc (one nvcc each,
    started together) and prints the ptxas register/spill lines;
-3. gather kernel phase: the north-star B / B' gather tables through the
-   kernel against the plain PyTorch version, bitwise (torch.equal), f32
-   and f64, with kernel and plain times from CUDA events;
-4. SpMV kernel phase: sell_mv against sell_mv_plain, bitwise, for the
-   (vals, x) pairs (f64, f64), (f32, f32), (f32, f64) on the Hessian of
-   the QP main path, on (a) the RCM-ordered journal-bearing Hessian at
-   1024 x 1024, (b) the RCM-ordered 7-point Laplacian at 128^3, (c) a
-   small skewed matrix (dense row, dense column, empty rows) and a
-   rectangular one through its transpose plan; in f64 also against scipy's
-   A @ x to 1e-12 relative; times of the kernel (back to back, and with
-   the L2 cache flushed before each launch, as the solver loop finds it),
-   the plain version and torch.mv on a CSR tensor (the library call, used
-   nowhere in the port);
+3. gather kernel phase: the north-star gather tables (B, B' with its
+   overflow, the reassembly table of the warm solve) through the kernel
+   against the plain PyTorch version and against the kernel it replaced,
+   bitwise (torch.equal), in all four (vals, x) dtype pairs, one launch per
+   apply; then, in f64 and f32, one launch's time with a cold L2 (CUDA
+   events around a launch made alone after a 256 MB buffer was rewritten),
+   replaced kernel, new, new, replaced kernel in turns, beside the
+   kernels' own device time by the profiler's records, the wrapper's
+   back-to-back call period, the plain version and the bound;
+4. SpMV kernel phase: sell_mv against sell_mv_plain and the replaced
+   kernel, bitwise, in all four dtype pairs, on the Hessian of the QP main
+   path, on (a) the RCM-ordered journal-bearing Hessian at 1024 x 1024,
+   (b) the RCM-ordered 7-point Laplacian at 128^3, (c) a small skewed
+   matrix (dense row, dense column, empty rows) and a rectangular one
+   through its transpose plan; in f64 also against scipy's A @ x to 1e-12
+   relative; the same times as in phase 3, torch.mv on a CSR tensor (the
+   library call, used nowhere in the port), the launch floor of the
+   measurement and the host cost of one wrapper call;
 5. the 64-subdomain 21^3 twin: reason 2, assembled residual < 1e-8,
    22-24 dual CG iterations (23 on the CPU);
 6. the north star: factorize, solve, re-solve with 1.5 b; reason 2 on
@@ -47,7 +52,13 @@ Phases:
    with_precision('mixed') (reported).
 
 Every phase raises on failure (exit code != 0).  The line before the last
-is the kernel JSON record, the last line {"ok": true, "device": ...}.
+is the kernel JSON record (``ms``: one launch between two events with a
+cold L2 at the main path's shape, for gather_apply the B' table of the
+north star; ``v1_ms``: the replaced kernel the same way, in turns;
+``call_ms``: the wrapper's back-to-back call period; ``kernel_only_ms``: the
+kernel's device time by the profiler; ``floor_ms``: what ``ms`` reads for a
+32-thread launch), the last line {"ok": true,
+"device": ...}.  ``--kernels-only`` stops after phase 4.
 Imports nothing of JAX or of the JAX package permon_tpu.
 """
 
@@ -72,11 +83,13 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps=20, warmup=3, flush=None):
+def cuda_ms(fn, reps=20, warmup=3, flush=None, clean=False):
     """Mean milliseconds of fn() on the current stream (CUDA events), the
     launches back to back; with ``flush`` (a buffer larger than the L2
     cache) each launch is timed alone after the buffer was rewritten, so it
-    finds its inputs in device memory."""
+    finds its inputs in device memory and the L2 full of modified lines
+    that it must write back; with ``clean`` the buffer is read instead, so
+    the L2 holds nothing to write back."""
     import torch
 
     for _ in range(warmup):
@@ -92,7 +105,10 @@ def cuda_ms(fn, reps=20, warmup=3, flush=None):
         return start.elapsed_time(end) / reps
     pairs = []
     for _ in range(reps):
-        flush.zero_()
+        if clean:
+            flush.view(torch.int64).sum()
+        else:
+            flush.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -113,57 +129,151 @@ def _nbytes(*tensors):
 
 
 def gather_table_work(tab, x, out):
-    """Bytes (tables, x and out once each) and flops (2 per table slot) of
-    one apply of a gather table."""
-    nbytes = _nbytes(tab.idx, tab.vals, tab.ov_idx, tab.ov_vals, tab.ov_tgt, x, out)
+    """Bytes (tables, overflow planes and marker, x and out once each) and
+    flops (2 per table slot) of one apply of a gather table."""
+    nbytes = _nbytes(tab.idx, tab.vals, tab.ov_idx, tab.ov_vals, tab.ov_mark, x, out)
     slots = tab.idx.numel() + (0 if tab.ov_idx is None else tab.ov_idx.numel())
     return nbytes, 2 * slots
 
 
+def turns_ms(fns, flush, reps=20, clean=False):
+    """Cold-L2 milliseconds per launch of each named function, taken in
+    turns in one run (a, b, ..., b, a): {name: (mean, first, second)}."""
+    names = list(fns)
+    got = {k: [] for k in names}
+    for k in names + names[::-1]:
+        got[k].append(cuda_ms(fns[k], reps=reps, flush=flush, clean=clean))
+    return {k: (sum(v) / 2, v[0], v[1]) for k, v in got.items()}
+
+
+def kernel_only_ms(fn, flush, reps=10):
+    """Milliseconds that the port's kernels launched by one fn() run on the
+    device, by the profiler's kernel records (no launch gap, no event), each
+    fn() after the flush buffer was rewritten; None if the profiler reports
+    no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    ours = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and ("sell_mv_kernel" in e.key or "gather_apply_kernel" in e.key)]
+    total = sum(e.self_device_time_total for e in ours)
+    return total / 1e3 / reps if total > 0 else None
+
+
+def host_us(fn, n=5000):
+    """Microseconds of host time per fn() call (device work drained after)."""
+    import torch
+
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / n
+
+
+def fmt_ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def run_all(fns):
+    for fn in fns:
+        fn()
+
+
 def phase_kernel(prob, dev):
-    """Kernel vs plain on the exact north-star gather tables."""
+    """The gather kernel on the exact north-star tables (B, B' with its
+    overflow, the reassembly table of the warm solve): against the plain
+    PyTorch version and the replaced kernel bitwise in all four dtype
+    pairs, then timed per launch with a cold L2, old against new in turns."""
     import numpy as np
     import scipy.sparse as sp
     import torch
 
-    from permon_tpu_torch.feti.large import band_layout, gluing_extension, padded
+    from permon_tpu_torch.core.sell import gather_apply, kernel_launchers
+    from permon_tpu_torch.feti.large import (ReassemblyTables, band_layout, gluing_extension,
+                                             padded)
     from permon_tpu_torch.feti.solve import FetiOptions
 
     _, _, nlp = band_layout([sp.csr_matrix(K) for K in prob.K_blocks], prob.nl)
     BE = gluing_extension(padded(prob, nlp).l2g, FetiOptions(gluing="nonred"), dev)
-    log(f"[kernel] B tables: gB {tuple(BE.gB.idx.shape)}, gBt {tuple(BE.gBt.idx.shape)}"
-        f" + overflow {tuple(BE.gBt.ov_idx.shape)}")
+    copies = ReassemblyTables.build(prob.l2g, nlp, dev).copies
     rng = np.random.RandomState(0)
-    u = rng.standard_normal(BE.shape[1])
-    lam = rng.standard_normal(BE.shape[0])
-    max_err, rec, work = 0.0, {}, [0, 0]
-    for vdt, xdt in ((torch.float64, torch.float64), (torch.float32, torch.float32),
-                     (torch.float64, torch.float32)):
-        for name, tab, x in (("mv", BE.gB, u), ("rmv", BE.gBt, lam)):
-            tab = tab.replace(vals=tab.vals.to(vdt),
-                              ov_vals=None if tab.ov_vals is None else tab.ov_vals.to(vdt))
+    tables = {"B": (BE.gB, rng.standard_normal(BE.shape[1])),
+              "B'": (BE.gBt, rng.standard_normal(BE.shape[0])),
+              "copies": (copies, rng.standard_normal(copies.n_src))}
+    for name, (tab, _) in tables.items():
+        log(f"[kernel] table {name}: {tuple(tab.idx.shape)}, plane stride {tab.idx.stride(0)}"
+            + ("" if tab.ov_idx is None else f", overflow {tuple(tab.ov_idx.shape)}, marker "
+               f"{_nbytes(tab.ov_mark) / _nbytes(tab.idx, tab.vals):.4f} of the table's bytes"))
+    flush = torch.empty(1 << 28, dtype=torch.uint8, device=dev)  # 256 MB > the 50 MB L2
+    f64, f32 = torch.float64, torch.float32
+    max_err, record = 0.0, None
+    for vdt, xdt in ((f64, f64), (f32, f32), (f64, f32), (f32, f64)):
+        for name, (tab, x) in tables.items():
+            tab = tab.cast(vdt)
             plain = tab.replace(kernel=False)
             xt = torch.as_tensor(x, dtype=xdt, device=dev)
+            n0 = gather_apply.launches
             got, ref = tab.apply(xt), plain.apply(xt)
+            if gather_apply.launches != n0 + 1:
+                raise AssertionError(f"table {name}: {gather_apply.launches - n0} launches "
+                                     "for one apply, not 1")
+            new, out_new = kernel_launchers(tab, xt)
+            old, out_old = kernel_launchers(tab, xt, version="v1")
+            run_all(new + old)
             torch.cuda.synchronize()
+            err = float((got.double() - ref.double()).abs().max())
+            max_err = max(max_err, err)
             if got.dtype != torch.promote_types(vdt, xdt) or not torch.equal(got, ref):
-                err = float((got.double() - ref.double()).abs().max())
                 raise AssertionError(f"gather kernel != plain for {name} vals {vdt} "
                                      f"x {xdt}: max abs err {err}")
-            max_err = max(max_err, float((got.double() - ref.double()).abs().max()))
-            k_ms, p_ms = cuda_ms(lambda: tab.apply(xt)), cuda_ms(lambda: plain.apply(xt))
+            if not (torch.equal(out_new, ref) and torch.equal(out_old, ref)):
+                raise AssertionError(f"replaced gather kernel != new for {name} vals {vdt} "
+                                     f"x {xdt}")
             key = f"{name} vals={str(vdt)[6:]} x={str(xdt)[6:]}"
-            rec[key] = (k_ms, p_ms)
+            if vdt != xdt:
+                log(f"[kernel] {key}: kernel = plain = replaced kernel, bitwise")
+                continue
+            fns = {"new": new[0], "v1": lambda: run_all(old)}
+            if len(old) == 2:
+                fns.update({"v1 table": old[0], "v1 overflow": old[1]})
+            t = turns_ms(fns, flush)
+            tc = turns_ms(fns, flush, clean=True)
+            k_new, k_old = kernel_only_ms(fns["new"], flush), kernel_only_ms(fns["v1"], flush)
+            log(f"[kernel] {key}: the kernels alone (profiler records, cold L2): new "
+                f"{fmt_ms(k_new)}, v1 {fmt_ms(k_old)}; between events after the buffer was "
+                "read, not rewritten: " + ", ".join(f"{k} {v[0]:.4f} ms" for k, v in tc.items()))
+            call_ms = cuda_ms(lambda: tab.apply(xt))
+            plain_ms = cuda_ms(lambda: plain.apply(xt), reps=5, warmup=1, flush=flush)
             nbytes, flops = gather_table_work(tab, xt, got)
-            if vdt == xdt == torch.float64:  # the pair the JSON record times
-                work = [work[0] + nbytes, work[1] + flops]
-            log(f"[kernel] {key}: bitwise equal; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                f"bound {bound_ms(nbytes, flops)[0]:.4f} ms ({nbytes / 1e6:.1f} MB)")
-    f64 = [rec["mv vals=float64 x=float64"], rec["rmv vals=float64 x=float64"]]
-    b_ms, b_by = bound_ms(*work)
-    return dict(max_abs_err=max_err, ms=sum(k for k, _ in f64),
-                plain_ms=sum(p for _, p in f64), bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)  # no single PyTorch call is the weighted plane gather
+            b_ms, b_by = bound_ms(nbytes, flops, str(xdt)[6:])
+            log(f"[kernel] {key}: kernel = plain = replaced kernel, bitwise; one launch, cold "
+                f"L2: new {t['new'][0]:.4f} ms ({t['new'][1]:.4f}, {t['new'][2]:.4f}), v1 "
+                f"{t['v1'][0]:.4f} ms ({t['v1'][1]:.4f}, {t['v1'][2]:.4f}; {len(old)} launches"
+                + (f": table {t['v1 table'][0]:.4f}, overflow {t['v1 overflow'][0]:.4f}"
+                   if len(old) == 2 else "")
+                + f"); call period back to back {call_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+                f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB, bound / new "
+                f"{b_ms / t['new'][0]:.2f})")
+            if name == "B'" and vdt == f64:  # the largest table of the main path
+                record = dict(ms=t["new"][0], v1_ms=t["v1"][0], call_ms=call_ms,
+                              kernel_only_ms=k_new, v1_kernel_only_ms=k_old,
+                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=None)  # no one PyTorch call is the weighted plane gather
+    record["max_abs_err"] = max_err
+    return record
 
 
 def phase_twin(dev):
@@ -312,14 +422,32 @@ def phase_spmv(mats, dev):
     (between two products the solver loop streams several times the L2's
     size of vectors)."""
     import numpy as np
+    import scipy.sparse as sp
     import torch
 
-    from permon_tpu_torch.core.sell import SEll
+    from permon_tpu_torch.core import sell
+    from permon_tpu_torch.core.sell import SEll, kernel_launchers
 
     pairs = ((torch.float64, torch.float64), (torch.float32, torch.float32),
-             (torch.float32, torch.float64))
+             (torch.float32, torch.float64), (torch.float64, torch.float32))
     max_err, record = 0.0, None
     flush = torch.empty(1 << 28, dtype=torch.uint8, device=dev)  # 256 MB > the 50 MB L2
+    # what one launch costs whatever it moves: the kernel on a 32 x 32 identity
+    tiny = SEll.from_scipy(sp.identity(32, format="csr"), device=dev)
+    one = torch.ones(32, dtype=torch.float64, device=dev)
+    (fn,), _ = kernel_launchers(tiny, one)
+    tiny.mv(one)
+    # what a call costs the host, on an operator whose kernel takes no time
+    log("[spmv] host cost of one sell_mv call, us: "
+        f"check_x {host_us(lambda: sell.check_x(one, 32, one.device)):.2f}, new_empty "
+        f"{host_us(lambda: one.new_empty(32)):.2f}, stream lookup "
+        f"{host_us(lambda: sell.current_raw_stream(0)):.2f}, the ctypes call with the launch "
+        f"{host_us(fn):.2f}, the whole wrapper {host_us(lambda: tiny.mv(one)):.2f}; one "
+        f"torch.add for scale {host_us(lambda: torch.add(one, one)):.2f}")
+    floor_ms = cuda_ms(fn, flush=flush)
+    log(f"[spmv] launch floor (32 x 32 identity, one launch between two events): "
+        f"{floor_ms:.4f} ms after the flush, {cuda_ms(fn, reps=200):.4f} ms back to back, "
+        f"{fmt_ms(kernel_only_ms(fn, flush))} the kernel alone")
     for name, a in mats.items():
         t0 = time.perf_counter()
         rect = a.shape[0] != a.shape[1]
@@ -336,7 +464,8 @@ def phase_spmv(mats, dev):
                              a.T.tocsr(), a.shape[0]))
             for dname, plan, mat, nx in dirs:
                 x = torch.as_tensor(rng.standard_normal(nx), dtype=xdt, device=dev)
-                got, ref = plan.mv(x), plan.replace(kernel=False).mv(x)
+                plain = plan.replace(kernel=False)
+                got, ref = plan.mv(x), plain.mv(x)
                 torch.cuda.synchronize()
                 err = float((got.double() - ref.double()).abs().max())
                 max_err = max(max_err, err)
@@ -350,29 +479,45 @@ def phase_spmv(mats, dev):
                     if not rel <= 1e-12:
                         raise AssertionError(f"sell_mv vs scipy on {key}: {rel}")
                     key += f" (scipy rel err {rel:.1e})"
+                fns = {}
+                for version in ("v1", "new"):
+                    (fn,), out = kernel_launchers(plan, x, version=version)
+                    fn()
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, ref):
+                        raise AssertionError(f"sell_mv {version} != plain on {key}")
+                    fns[version] = fn
                 if mat.nnz < 1e6:
-                    log(f"[spmv] {key}: bitwise equal")
+                    log(f"[spmv] {key}: all kernels = plain, bitwise")
                     continue
-                w_ms = cuda_ms(lambda: plan.mv(x))
-                k_ms = cuda_ms(lambda: plan.mv(x), flush=flush)
-                p_ms = cuda_ms(lambda: plan.replace(kernel=False).mv(x), reps=5, warmup=1,
-                               flush=flush)
+                t = turns_ms(fns, flush)
+                tc = turns_ms(fns, flush, clean=True)
+                k_new, k_old = kernel_only_ms(fns["new"], flush), kernel_only_ms(fns["v1"], flush)
+                log(f"[spmv] {key}: the kernels alone (profiler records, cold L2): new "
+                    f"{fmt_ms(k_new)}, v1 {fmt_ms(k_old)}; between events after the buffer was "
+                    "read, not rewritten: " + ", ".join(f"{k} {v[0]:.4f} ms" for k, v in tc.items()))
+                k_ms = t["new"][0]
+                call_ms = cuda_ms(lambda: plan.mv(x))
+                p_ms = cuda_ms(lambda: plain.mv(x), reps=5, warmup=1, flush=flush)
                 l_ms, lref = library_spmv_ms(mat.astype(np.dtype(str(vdt)[6:])), x, flush) \
                     if vdt == xdt else (None, None)
                 if lref is not None and not torch.allclose(lref, got, rtol=1e-5, atol=1e-5):
                     raise AssertionError(f"torch.mv on the CSR tensor disagrees on {key}")
                 nbytes, flops = spmv_work(plan, x)
                 b_ms, b_by = bound_ms(nbytes, flops, str(xdt)[6:])
-                log(f"[spmv] {key}: bitwise equal; kernel {k_ms:.4f} ms cold L2 "
-                    f"({mat.nnz / k_ms / 1e6:.1f} GnnZ/s, {nbytes / k_ms / 1e6:.0f} GB/s), "
-                    f"{w_ms:.4f} ms back to back, plain "
-                    f"{p_ms:.3f} ms, torch.mv(CSR) "
+                log(f"[spmv] {key}: all kernels = plain, bitwise; one launch, cold L2: "
+                    + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]:.4f}, {v[2]:.4f})"
+                                for k, v in t.items())
+                    + f"; new: {mat.nnz / k_ms / 1e6:.1f} GnnZ/s, {nbytes / k_ms / 1e6:.0f} GB/s, "
+                    f"bound / new {b_ms / k_ms:.2f}; call period back to back {call_ms:.4f} ms; "
+                    f"plain {p_ms:.3f} ms, torch.mv(CSR) "
                     f"{'not timed' if l_ms is None else f'{l_ms:.4f} ms'}, bound {b_ms:.4f} ms "
                     f"by {b_by} ({nbytes / 1e6:.1f} MB)")
                 if name.startswith("(main)") and vdt == xdt == torch.float64:
-                    record = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                                  library_ms=l_ms)
-    record["max_abs_err"] = max_err
+                    record = dict(ms=k_ms, v1_ms=t["v1"][0], call_ms=call_ms,
+                                  kernel_only_ms=k_new, v1_kernel_only_ms=k_old, plain_ms=p_ms,
+                                  bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+    record.update(max_abs_err=max_err, floor_ms=floor_ms)
     return record
 
 
@@ -569,6 +714,9 @@ def main():
                                                     np.random.RandomState(3)),
     }, dev)
     del lap, jb_a
+    gather_rec["floor_ms"] = spmv_rec["floor_ms"]  # one floor for every "ms" of the line
+    if "--kernels-only" in sys.argv[1:]:  # development: stop after the kernel phases
+        return 0
 
     phase_twin(dev)
     launches = phase_main(prob, t_host_prob, dev)

@@ -27,7 +27,7 @@ import torch
 
 from .. import Struct, resolve_device
 from .linop import LinearOperator
-from .sell import gather_apply
+from .sell import MARK_GROUP, gather_apply, plane_stride
 
 
 def pack_planes(keys, payload, pv, nrows: int, pad_key: int,
@@ -57,27 +57,62 @@ def pack_planes(keys, payload, pv, nrows: int, pad_key: int,
     return idx, val, ov
 
 
+#: planes of a device table are padded to a multiple of this many entries,
+#: so that every plane starts on a 16-byte boundary (csrc/gather_apply.cu
+#: reads 2 or 4 neighbouring rows with one load)
+PLANE_ALIGN = 4
+
+
+def overflow_marker(targets, nrows: int) -> np.ndarray:
+    """The (ceil(nrows / 256), 9) int32 table that tells the kernel which
+    rows have overflow.  Record g covers rows 256 g .. 256 g + 255: column 0
+    holds the number of ``targets`` (ascending, unique) before the group,
+    columns 1..8 bitmasks of 32 rows each, bit r % 32 of mask (r % 256) // 32
+    set for a target r.  So a marked row owns overflow column
+    ``count + popcount(the group's masks below its bit)``."""
+    targets = np.asarray(targets, dtype=np.int64)
+    ngroups = (nrows + MARK_GROUP - 1) // MARK_GROUP
+    masks = np.zeros(ngroups * 8, dtype=np.uint32)
+    np.bitwise_or.at(masks, targets // 32, np.uint32(1) << (targets % 32).astype(np.uint32))
+    per_group = np.bincount(targets // MARK_GROUP, minlength=ngroups)
+    before = (np.cumsum(per_group) - per_group).astype(np.int32)
+    return np.concatenate([before[:, None], masks.view(np.int32).reshape(ngroups, 8)], axis=1)
+
+
+def _padded_planes(a: np.ndarray, fill, device) -> torch.Tensor:
+    """Upload a (w, nrows) host table with its planes padded to PLANE_ALIGN
+    entries; returns the (w, nrows) view of the padded device tensor."""
+    w, n = a.shape
+    full = np.full((w, -(-n // PLANE_ALIGN) * PLANE_ALIGN), fill, dtype=a.dtype)
+    full[:, :n] = a
+    return torch.tensor(full, device=device)[:, :n]
+
+
 @dataclasses.dataclass
 class GatherTable(Struct):
     """A plane-major gather table plus its optional overflow planes:
     ``apply(x)[r] = sum_j vals[j, r] * xhat[idx[j, r]]``, then for each
     overflow target t (unique, ascending): ``out[ov_tgt[t]] +=`` its
-    overflow planes in entry order."""
+    overflow planes in entry order.  On a CUDA device one kernel launch
+    does both (:func:`~permon_tpu_torch.core.sell.gather_apply`)."""
 
-    idx: torch.Tensor  # (w, nrows) int32, pad = n_src
-    vals: torch.Tensor  # (w, nrows)
+    idx: torch.Tensor  # (w, nrows) int32, pad = n_src; planes may be padded
+    vals: torch.Tensor  # (w, nrows), the stride of idx
     n_src: int  # length of the vectors the table gathers from
-    ov_tgt: torch.Tensor = None  # (nt,) int32 unique targets
+    ov_tgt: torch.Tensor = None  # (nt,) int32 unique ascending targets
     ov_idx: torch.Tensor = None  # (wov, nt) int32, pad = n_src
     ov_vals: torch.Tensor = None  # (wov, nt)
+    ov_mark: torch.Tensor = None  # overflow_marker(ov_tgt, nrows), for the kernel
     #: False selects the plain PyTorch version even on CUDA
     kernel: bool = True
 
     @classmethod
     def from_host(cls, idx, vals, device, n_src: int, overflow=None):
-        """Upload host tables gathering from vectors of length ``n_src``;
-        ``overflow`` = (targets, src ids, values) COO in any order is sorted
-        by target (stable) and packed into planes here.  Every index is
+        """Upload host tables gathering from vectors of length ``n_src``,
+        their planes padded to PLANE_ALIGN entries (``idx`` and ``vals`` are
+        the (w, nrows) views); ``overflow`` = (targets, src ids, values) COO
+        in any order is sorted by target (stable) and packed into planes
+        here, with the marker that names its targets.  Every index is
         checked to lie in [0, n_src] (n_src = the zero pad slot) before the
         kernel ever sees the table."""
         dev = resolve_device(device)
@@ -86,8 +121,8 @@ class GatherTable(Struct):
         for name, a in (("idx", idx), ("overflow ids", ov_src)):
             if len(a) and not (0 <= np.min(a) and np.max(a) <= n_src):
                 raise ValueError(f"gather table {name} outside [0, {n_src}]")
-        out = cls(idx=torch.tensor(idx, device=dev),
-                  vals=torch.tensor(np.asarray(vals), device=dev), n_src=int(n_src))
+        out = cls(idx=_padded_planes(idx, n_src, dev),
+                  vals=_padded_planes(np.asarray(vals), 0, dev), n_src=int(n_src))
         if overflow is not None and len(overflow[0]):
             tgt_all, src, v = (np.asarray(a) for a in overflow)
             tgt, inv = np.unique(tgt_all, return_inverse=True)
@@ -95,19 +130,21 @@ class GatherTable(Struct):
             out = out.replace(
                 ov_tgt=torch.as_tensor(tgt.astype(np.int32), device=dev),
                 ov_idx=torch.as_tensor(oi, device=dev),
-                ov_vals=torch.as_tensor(ov, device=dev),
+                ov_vals=torch.as_tensor(ov.astype(np.asarray(vals).dtype), device=dev),
+                ov_mark=torch.as_tensor(overflow_marker(tgt, idx.shape[1]), device=dev),
             )
         return out
 
+    def cast(self, dtype: torch.dtype) -> "GatherTable":
+        """The table with its values in ``dtype``, the padded planes kept."""
+        w, n = self.vals.shape
+        s = plane_stride(self.vals)
+        full = self.vals.as_strided((w, s), (s, 1)).to(dtype)
+        return self.replace(vals=full[:, :n], ov_vals=None if self.ov_vals is None
+                            else self.ov_vals.to(dtype))
+
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        if x.shape != (self.n_src,):
-            raise ValueError(f"gather table over {self.n_src} entries got x of "
-                             f"shape {tuple(x.shape)}")
-        out = gather_apply(self.idx, self.vals, x, kernel=self.kernel)
-        if self.ov_tgt is not None:
-            gather_apply(self.ov_idx, self.ov_vals, x, out=out, tgt=self.ov_tgt,
-                         kernel=self.kernel)
-        return out
+        return gather_apply(self, x)
 
 
 @dataclasses.dataclass

@@ -10,9 +10,10 @@ import pytest
 import torch
 
 from permon_tpu_torch.core.convergence import Tolerances
-from permon_tpu_torch.core.extension import SubdomainExtension
+from permon_tpu_torch.core.extension import GatherTable, SubdomainExtension
 from permon_tpu_torch.core import sell
-from permon_tpu_torch.core.sell import SEll, gather_apply, gather_apply_plain, sell_mv
+from permon_tpu_torch.core.sell import (SEll, gather_apply, gather_apply_plain,
+                                        kernel_launchers, sell_mv)
 from permon_tpu_torch.feti.assembly import build_gluing
 from permon_tpu_torch.feti.large import FetiSolverSparse, feti_solve_sparse
 from permon_tpu_torch.feti.solve import FetiOptions
@@ -49,16 +50,39 @@ def test_kernel_equals_plain_bitwise(cuda_device, vdt, xdt):
     assert B.gBt.ov_tgt is not None  # overflow planes exercised
     rng = np.random.RandomState(0)
     for tab, n in ((B.gB, B.ns * B.nl), (B.gBt, B.m_dual)):
-        tab = tab.replace(vals=tab.vals.to(vdt), ov_vals=None if tab.ov_vals is None
-                          else tab.ov_vals.to(vdt))
+        tab = tab.cast(vdt)
         x = torch.as_tensor(rng.standard_normal(n), dtype=xdt, device=cuda_device)
         n0 = gather_apply.launches
         got = tab.apply(x)
-        assert gather_apply.launches == n0 + (2 if tab.ov_tgt is not None else 1)
+        assert gather_apply.launches == n0 + 1  # the overflow rides in the same launch
         ref = _plain(tab, x)
         torch.cuda.synchronize()
         assert got.dtype == torch.promote_types(vdt, xdt)
         assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("vdt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("xdt", [torch.float64, torch.float32])
+def test_replaced_gather_kernel_equals_new_bitwise(cuda_device, vdt, xdt):
+    """The kernel of the first port (two launches for a table with
+    overflow) against the single launch, on padded and on compact planes."""
+    B = _gluing_ext(cuda_device)
+    rng = np.random.RandomState(1)
+    for tab, n in ((B.gB, B.ns * B.nl), (B.gBt, B.m_dual)):
+        x = torch.as_tensor(rng.standard_normal(n), dtype=xdt, device=cuda_device)
+        padded = tab.cast(vdt)
+        compact = padded.replace(idx=padded.idx.contiguous(), vals=padded.vals.contiguous())
+        ref = _plain(padded, x)
+        for t in (padded, compact):
+            new, out_new = kernel_launchers(t, x)
+            old, out_old = kernel_launchers(t, x, version="v1")
+            assert len(new) == 1 and len(old) == (2 if t.ov_tgt is not None else 1)
+            n0 = gather_apply.launches
+            for fn in new + old:
+                fn()
+            torch.cuda.synchronize()
+            assert gather_apply.launches == n0  # the timing helper counts nothing
+            assert torch.equal(out_new, ref) and torch.equal(out_old, ref)
 
 
 def test_wrapper_raises_on_noncontiguous(cuda_device):
@@ -66,7 +90,22 @@ def test_wrapper_raises_on_noncontiguous(cuda_device):
     vals = torch.ones((2, 4), dtype=torch.float64, device=cuda_device)
     x = torch.ones(3, dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError):
-        gather_apply(idx, vals, x)
+        gather_apply(GatherTable(idx=idx, vals=vals, n_src=3), x)
+
+
+def test_gather_plan_checks_x_on_every_call(cuda_device):
+    """After a plan exists a wrong x still raises, and nothing launches."""
+    tab = _gluing_ext(cuda_device).gBt
+    x = torch.ones(tab.n_src, dtype=torch.float64, device=cuda_device)
+    tab.apply(x)
+    n0 = gather_apply.launches
+    for bad, exc in ((x[:-1], ValueError), (x.half(), TypeError), (x.cpu(), ValueError),
+                     (torch.ones(2 * tab.n_src, dtype=torch.float64,
+                                 device=cuda_device)[::2], ValueError)):
+        with pytest.raises(exc):
+            tab.apply(bad)
+    assert gather_apply.launches == n0
+    assert tab.replace(kernel=False).__dict__.get("_plan") is None  # a new object, a new plan
 
 
 def test_kernel_solve_equals_plain_solve(cuda_device):
@@ -135,6 +174,24 @@ def test_sell_mv_kernel_equals_plain_bitwise(cuda_device, vdt, xdt):
         np.testing.assert_allclose(got.cpu().numpy(), y, rtol=0, atol=1e-12 * np.abs(y).max())
 
 
+@pytest.mark.parametrize("vdt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("xdt", [torch.float64, torch.float32])
+def test_replaced_sell_mv_kernel_equals_new_bitwise(cuda_device, vdt, xdt):
+    a = _skewed()
+    op = SEll.from_scipy(a, device=cuda_device)
+    op = op.replace(vals=op.vals.to(vdt))
+    x = torch.as_tensor(np.random.RandomState(4).standard_normal(a.shape[1]), dtype=xdt,
+                        device=cuda_device)
+    ref = op.replace(kernel=False).mv(x)
+    (new,), out_new = kernel_launchers(op, x)
+    (old,), out_old = kernel_launchers(op, x, version="v1")
+    n0 = sell_mv.launches
+    new(), old()
+    torch.cuda.synchronize()
+    assert sell_mv.launches == n0
+    assert torch.equal(out_new, ref) and torch.equal(out_old, ref)
+
+
 def test_sell_mv_cuda_tensor_never_reaches_plain(cuda_device, monkeypatch):
     def boom(*args, **kwargs):
         raise AssertionError("the plain version was called for a CUDA tensor")
@@ -154,6 +211,15 @@ def test_sell_mv_raises_on_noncontiguous(cuda_device):
         op.mv(x)
     with pytest.raises(ValueError, match="one device"):
         op.mv(torch.ones(500, dtype=torch.float64))
+    op.mv(torch.ones(500, dtype=torch.float64, device=cuda_device))  # the plan exists now
+    n0 = sell_mv.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        op.mv(x)
+    with pytest.raises(ValueError, match="length 500"):
+        op.mv(torch.ones(499, dtype=torch.float64, device=cuda_device))
+    with pytest.raises(TypeError):
+        op.mv(torch.ones(500, dtype=torch.float16, device=cuda_device))
+    assert sell_mv.launches == n0
 
 
 def test_qp_kernel_solve_equals_plain_solve(cuda_device):

@@ -13,7 +13,8 @@ import torch
 from examples.feti_large import build_sparse as jax_build_sparse
 from permon_tpu.core.extension import SubdomainExtension as JaxExtension
 from permon_tpu.feti.assembly import build_gluing as jax_build_gluing
-from permon_tpu_torch.core.sell import gather_apply
+from permon_tpu_torch.core.extension import GatherTable
+from permon_tpu_torch.core.sell import gather_apply, gather_apply_plain
 from permon_tpu_torch.interop import from_arrays
 
 torch.set_num_threads(2)
@@ -96,16 +97,25 @@ def test_port_tables_equal_jax_tables(exts):
 
 
 def test_accumulate_mode_adds_in_entry_order():
-    """tgt mode: row r adds its planes onto out[tgt[r]] in plane order."""
+    """The overflow: target t adds its planes onto the table's sum of row
+    ov_tgt[t], after the table planes, in plane (= entry) order; the plain
+    accumulate mode itself adds onto out[tgt[r]] in place."""
     x = torch.tensor([1.0, 2.0, 4.0], dtype=torch.float64)
     idx = torch.tensor([[0, 2], [1, 3]], dtype=torch.int32)  # 3 = pad
     vals = torch.tensor([[1.0, 10.0], [100.0, 5.0]], dtype=torch.float64)
     out = torch.tensor([0.5, 0.25, 0.125], dtype=torch.float64)
-    gather_apply(idx, vals, x, out=out, tgt=torch.tensor([2, 0], dtype=torch.int32))
+    gather_apply_plain(idx, vals, x, out=out, tgt=torch.tensor([2, 0], dtype=torch.int32))
     np.testing.assert_array_equal(out.numpy(), [0.5 + 40.0 + 0.0, 0.25, 0.125 + 1.0 + 200.0])
+    # entry order decides the rounding: 1 + 1e16 - 1e16 = 0, not 1
+    tab = GatherTable.from_host(np.array([[0, 1, 3]]), np.ones((1, 3)), "cpu", n_src=3,
+                                overflow=(np.array([2, 0, 0]), np.array([2, 1, 2]),
+                                          np.array([7.0, 1e16, -1e16 / 4.0])))
+    got = gather_apply(tab, x).numpy()
+    np.testing.assert_array_equal(got, [(1.0 + 2e16) - 1e16, 2.0, 0.0 + 28.0])
+    np.testing.assert_array_equal(tab.ov_tgt.numpy(), [0, 2])
 
 
-@pytest.mark.parametrize("bad", ["idx_dtype", "shape", "vals_dtype", "x_dim", "no_out"])
+@pytest.mark.parametrize("bad", ["idx_dtype", "shape", "vals_dtype", "x_dim", "ov_dtype"])
 def test_wrapper_rejects_bad_inputs(bad):
     idx = torch.zeros((2, 4), dtype=torch.int32)
     vals = torch.ones((2, 4), dtype=torch.float64)
@@ -119,19 +129,19 @@ def test_wrapper_rejects_bad_inputs(bad):
         vals = vals.half()
     elif bad == "x_dim":
         x = x[:, None]
-    elif bad == "no_out":
-        kw = dict(tgt=torch.zeros(4, dtype=torch.int32))
+    elif bad == "ov_dtype":  # overflow values of another dtype than the table's
+        kw = dict(ov_tgt=torch.zeros(1, dtype=torch.int32),
+                  ov_idx=torch.zeros((1, 1), dtype=torch.int32),
+                  ov_vals=torch.ones((1, 1), dtype=torch.float32))
     with pytest.raises((TypeError, ValueError)):
-        gather_apply(idx, vals, x, **kw)
+        gather_apply(GatherTable(idx=idx, vals=vals, n_src=3, **kw), x)
 
 
 def test_gather_table_validates_indices_and_length():
-    from permon_tpu_torch.core.extension import GatherTable
-
     with pytest.raises(ValueError, match="outside"):
         GatherTable.from_host(np.array([[0, 5]]), np.ones((1, 2)), "cpu", n_src=4)
     tab = GatherTable.from_host(np.array([[0, 4]]), np.ones((1, 2)), "cpu", n_src=4)
     np.testing.assert_array_equal(tab.apply(torch.arange(1.0, 5.0, dtype=torch.float64)).numpy(),
                                   [1.0, 0.0])
-    with pytest.raises(ValueError, match="gather table over 4"):
+    with pytest.raises(ValueError, match="vector of length 4"):
         tab.apply(torch.ones(5, dtype=torch.float64))
