@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths and checks them:
+Drives the port's main paths and checks them:
 
 - the large-path linear TFETI solve (FetiSolverSparse) on the 101^3 =
   1,030,301-dof 3-D Poisson north star (64 subdomains), on the gather
@@ -13,7 +13,12 @@ Drives the port's two main paths and checks them:
   262,144 unknowns), on the SpMV kernel (csrc/sell_mv.cu).  512 is the
   largest power of two at which MPRGP reaches reason 2 inside its 10,000
   iterations (5,789 on an H100; at 1024 x 1024 it takes 39,425 and stops
-  on atol, see chip_qp_scaling.py).
+  on atol, see chip_qp_scaling.py);
+- contact on the large path (FetiSolverSparse with inequality rows BI/cI:
+  SMALXE around MPRGP on the box-constrained dual) on the 80^3 =
+  512,000-dof Poisson box with a ceiling on its far face (6,400 contact
+  rows, 64 subdomains; the shape of scripts/northstar_contact.py), with
+  the gather kernel applying the tables of BE and of BI.
 
 Phases:
 
@@ -21,7 +26,8 @@ Phases:
 2. builds both CUDA kernels from permon_tpu_torch/csrc (one nvcc each,
    started together) and prints the ptxas register/spill lines;
 3. gather kernel phase: the north-star gather tables (B, B' with its
-   overflow, the reassembly table of the warm solve) through the kernel
+   overflow, the reassembly table of the warm solve) and the contact rows'
+   tables of phase 8 (BI, BI') through the kernel
    against the plain PyTorch version and against the kernel it replaced,
    bitwise (torch.equal), in all four (vals, x) dtype pairs, one launch per
    apply; then, in f64 and f32, one launch's time with a cold L2 (CUDA
@@ -49,7 +55,18 @@ Phases:
    recomputed on the host in scipy f64 within the tolerance, the same
    solve through SEll(kernel=False) with equal counts and a bitwise equal
    x, the unpermuted problem through Dia in agreement, and once more under
-   with_precision('mixed') (reported).
+   with_precision('mixed') (reported);
+8. contact at 512,000 dofs, f32 factors + 2 refinement steps, rtol 1e-5:
+   (a) the projected dual: first solve and a warm re-solve with 1.001 b,
+   reason 2 and ONE outer iteration each, the far face under the cap to
+   1e-4 of the cap and touching it, the natural KKT residual of the
+   assembled box QP (scipy f64) within 1e-3 ||b||, and the same solve
+   through the plain
+   gather version with equal counts and a bitwise equal x_global; (b)
+   SMALBE proper (project=False, rtol_E 0.1): reason 2, more than one
+   outer iteration, M1 updated, the solution within its limit of (a)'s;
+   (c) the lumped dual preconditioner on the 21^3 twin: reason 2, first
+   (eager) and warm (fast path) solve with equal counts, residual <= 1e-8.
 
 Every phase raises on failure (exit code != 0).  The line before the last
 is the kernel JSON record (``ms``: one launch between two events with a
@@ -70,6 +87,7 @@ import time
 
 NORTH_STAR = ((100,) * 3, (4,) * 3)
 TWIN = ((20,) * 3, (4,) * 3)
+CONTACT = ((79,) * 3, (4,) * 3)  # 80^3 = 512,000 dofs, 6,400 contact rows
 JBEARING = (512, 512)  # the QP main path: 262,144 unknowns
 SPMV_JBEARING = (1024, 1024)  # SpMV matrix (a): 1,048,576 rows
 LAPLACIAN_NX = 128  # SpMV matrix (b): 2,097,152 rows
@@ -129,10 +147,13 @@ def _nbytes(*tensors):
 
 
 def gather_table_work(tab, x, out):
-    """Bytes (tables, overflow planes and marker, x and out once each) and
-    flops (2 per table slot) of one apply of a gather table."""
-    nbytes = _nbytes(tab.idx, tab.vals, tab.ov_idx, tab.ov_vals, tab.ov_mark, x, out)
+    """Bytes and flops (2 per table slot) of one apply of a gather table: the
+    tables, overflow planes and marker and out once each, and of x what the
+    slots need: one 32-byte sector per slot, at most all of x (a table with
+    few slots, as the contact rows' B, gathers a sliver of x)."""
     slots = tab.idx.numel() + (0 if tab.ov_idx is None else tab.ov_idx.numel())
+    nbytes = (_nbytes(tab.idx, tab.vals, tab.ov_idx, tab.ov_vals, tab.ov_mark, out)
+              + min(32 * slots, _nbytes(x)))
     return nbytes, 2 * slots
 
 
@@ -194,7 +215,8 @@ def run_all(fns):
 
 def phase_kernel(prob, dev):
     """The gather kernel on the exact north-star tables (B, B' with its
-    overflow, the reassembly table of the warm solve): against the plain
+    overflow, the reassembly table of the warm solve) and on the contact
+    rows' tables of phase 8 (BI, BI'): against the plain
     PyTorch version and the replaced kernel bitwise in all four dtype
     pairs, then timed per launch with a cold L2, old against new in turns."""
     import numpy as np
@@ -205,14 +227,22 @@ def phase_kernel(prob, dev):
     from permon_tpu_torch.feti.large import (ReassemblyTables, band_layout, gluing_extension,
                                              padded)
     from permon_tpu_torch.feti.solve import FetiOptions
+    from permon_tpu_torch.problems import build_obstacle
 
     _, _, nlp = band_layout([sp.csr_matrix(K) for K in prob.K_blocks], prob.nl)
     BE = gluing_extension(padded(prob, nlp).l2g, FetiOptions(gluing="nonred"), dev)
     copies = ReassemblyTables.build(prob.l2g, nlp, dev).copies
+    # the contact rows of phase 8, re-padded as assemble_qp_sparse pads them
+    cprob, BI, _, _ = build_obstacle(*CONTACT)
+    _, _, cnlp = band_layout([sp.csr_matrix(K) for K in cprob.K_blocks], cprob.nl)
+    BI = BI.replace(nl=cnlp).with_gather_apply(dev)
+    del cprob
     rng = np.random.RandomState(0)
     tables = {"B": (BE.gB, rng.standard_normal(BE.shape[1])),
               "B'": (BE.gBt, rng.standard_normal(BE.shape[0])),
-              "copies": (copies, rng.standard_normal(copies.n_src))}
+              "copies": (copies, rng.standard_normal(copies.n_src)),
+              "BI": (BI.gB, rng.standard_normal(BI.shape[1])),
+              "BI'": (BI.gBt, rng.standard_normal(BI.shape[0]))}
     for name, (tab, _) in tables.items():
         log(f"[kernel] table {name}: {tuple(tab.idx.shape)}, plane stride {tab.idx.stride(0)}"
             + ("" if tab.ov_idx is None else f", overflow {tuple(tab.ov_idx.shape)}, marker "
@@ -367,6 +397,230 @@ def phase_main(prob, t_host_prob, dev):
     for name, fn in parts.items():
         log(f"[main] breakdown {name}: {cuda_ms(fn, reps=5, warmup=1):.3f} ms")
     return launches
+
+
+def box_kkt(A, b, far, cap, x):
+    """(natural residual, least multiplier over the largest) of the box QP.
+    The natural residual ||x - P(x - g)|| / ||b|| of min 1/2 x'Ax - b'x,
+    x <= cap on the dofs ``far``, with g = A x - b and P the projection on
+    the box, in scipy f64: g on a free dof, max(g, x - cap) on a bounded one
+    (zero exactly at a KKT point; it needs no guess of the contact set).
+    The multiplier of a bounded dof is -g (>= 0 at a KKT point); the second
+    value is its minimum over its maximum on ``far``."""
+    import numpy as np
+
+    g = A @ x - b
+    r = np.where(far, np.maximum(g, x - cap), g)
+    mu = -g[far]
+    mu_rel = float(mu.min() / mu.max()) if mu.max() > 0 else -np.inf
+    return float(np.linalg.norm(r) / np.linalg.norm(b)), mu_rel
+
+
+def smalxe_counts(r):
+    return (r.iterations, r.inner_iterations, r.nmv, r.M1_updates, r.rho_updates)
+
+
+def phase_contact(dev):
+    """Contact on the large path at 512,000 dofs: the projected dual, the
+    same through the plain gather version, SMALBE proper, and the lumped
+    preconditioner on the twin.  Returns the gather_apply launches of the
+    contact solves that ran on the kernel."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.core.sell import gather_apply
+    from permon_tpu_torch.feti.large import FetiSolverSparse
+    from permon_tpu_torch.feti.solve import FetiOptions
+    from permon_tpu_torch.problems import assembled_system, build_obstacle, build_sparse
+    from permon_tpu_torch.solvers.smalxe import SMALXEOptions
+
+    cells, grid = CONTACT
+    tol = Tolerances(rtol=1e-5)
+    f32 = dict(kplus_dtype=torch.float32, kplus_refine=2)
+    base = dict(gluing="nonred", deterministic=True, coarse="sparse")
+    t0 = time.perf_counter()
+    prob, BI, cI, cap = build_obstacle(cells, grid)
+    t_build = time.perf_counter() - t0
+
+    def timed(solver, **kw):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        r = solver.solve(tol=tol, **kw)
+        torch.cuda.synchronize(dev)
+        return r, time.perf_counter() - t
+
+    def report(tag, r, t, n_launch):
+        # every F apply launches the kernel four times (B' and B of BE and of
+        # BI); beside the inner solve's products F serves the two power
+        # methods, the Lagrangians, d and the post-solve chain
+        res, n_f = r.result, n_launch // 4
+        log(f"[contact] {tag}: reason {res.reason}, outer {res.iterations}, inner "
+            f"{res.inner_iterations}, Hessian products {res.nmv} (cg/exp/prop "
+            f"{res.ncg}/{res.nexp}/{res.nprop}), M1 updates {res.M1_updates}, rho updates "
+            f"{res.rho_updates}, {t:.3f} s; gather_apply launches {n_launch} = 4 x {n_f} F "
+            f"applies + {n_launch % 4}: {1e3 * t / max(n_f, 1):.3f} ms per F apply with all "
+            f"that rides on it, {1e3 * t / max(res.inner_iterations, 1):.3f} ms per inner "
+            "iteration with the power methods and the post-solve chain charged to it")
+
+    # ---- 8a: the projected dual --------------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    gather_apply.launches = 0  # count this path's launches only
+    solver = FetiSolverSparse(prob, FetiOptions(**base), BI=BI, cI=cI, device=dev, **f32)
+    r1, t1 = timed(solver)
+    n_first = gather_apply.launches
+    r2, t2 = timed(solver, b_loc=prob.b_loc * 1.001)
+    launches = gather_apply.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[contact] {prob.n_global} dofs, {prob.ns} subdomains of <= {prob.nl} dofs, NB "
+        f"{solver.NB}, k {solver.qp.R.shape[1]}, gluing rows {solver.qp.BE.shape[0]}, contact "
+        f"rows {solver.qp.BI.shape[0]}, cap {cap:.2f}")
+    log(f"[contact] host setup {t_build + solver.timings['host_setup_s']:.3f} s (problem build "
+        f"{t_build:.3f} s), factorization {solver.timings['factor_s']:.3f} s, peak device "
+        f"memory {peak / 2**30:.3f} GiB")
+    report("8a projected, first solve", r1, t1, n_first)
+    report("8a projected, warm re-solve with 1.001 b", r2, t2, launches - n_first)
+    for tag, r in (("first", r1), ("warm", r2)):
+        if r.result.reason != 2 or r.result.iterations != 1:
+            raise AssertionError(f"contact 8a {tag}: reason {r.result.reason}, outer "
+                                 f"{r.result.iterations}; expected 2 and 1")
+    if r1.dual_qp is not None or n_first <= 0 or launches <= n_first:
+        raise AssertionError("contact 8a: the fast path or the gather kernel did not run")
+    A, b = assembled_system(cells)
+    Mx = cells[0] + 1
+    far = np.arange(len(b)) % Mx == Mx - 1
+    x = r1.x_global
+    # the limits scale with the solution: the dual solve stops at
+    # ||gP|| <= 1e-5 ||d||, so the primal is right to about 1e-5 of its own
+    # size (the cap, 936 here): 2e-5 of the cap over it, 1e-3 ||b|| of KKT
+    # residual; every far-face multiplier is held to its KKT sign, >= 0
+    feas = 2e-5 * cap
+    over = float((x[far] - cap).max())
+    n_active = int((x[far] >= cap - feas).sum())
+    kkt, mu_rel = box_kkt(A, b, far, cap, x)
+    log(f"[contact] 8a on the host (scipy f64): max(x - cap) on the far face {over:.3e} (limit "
+        f"2e-5 cap = {feas:.3e}), {n_active} of {int(far.sum())} far-face dofs within that of "
+        f"the cap, natural KKT residual of the assembled box QP {kkt:.3e} ||b|| (limit 1e-3), "
+        f"least far-face multiplier {mu_rel:.3e} of the largest (limit >= 0); interior max "
+        f"{x.max():.2f}")
+    if not (np.isfinite(x).all() and over <= feas and n_active > 0 and kkt <= 1e-3
+            and mu_rel >= 0):
+        raise AssertionError(f"contact 8a: over {over}, active {n_active}, KKT {kkt}, least "
+                             f"multiplier {mu_rel}")
+    move = np.abs(r2.x_global - x).max()
+    if not 0 < move < 0.01 * cap:
+        raise AssertionError(f"contact 8a: the warm re-solve moved x by {move}")
+
+    # where the time of a warm solve goes: a profiled re-solve
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rp, _ = timed(solver, b_loc=prob.b_loc * 1.001)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if smalxe_counts(rp.result) != smalxe_counts(r2.result):
+        raise AssertionError("contact 8a: the profiled re-solve changed its counts")
+    if dev_ms <= 0:
+        log("[contact] profile: no device time reported; idle share not measured")
+    else:
+        log(f"[contact] profile of a warm re-solve: device time {dev_ms:.1f} ms against "
+            f"{1e3 * t2:.1f} ms wall (unprofiled): device idle share {1 - dev_ms / (1e3 * t2):.3f}")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"[contact] profile   {e.self_device_time_total / 1e3:.2f} ms x{e.count}  "
+                f"{e.key[:90]}")
+    qp, pf = solver.qp, solver._pf
+    lam = torch.as_tensor(np.random.RandomState(1).standard_normal(pf.G.shape[1]), device=dev)
+    lam_E, lam_I = lam[: qp.BE.shape[0]], lam[qp.BE.shape[0]:]
+    v = qp.BE.rmv(lam_E)
+    parts = {
+        "BE' (rmv)": lambda: qp.BE.rmv(lam_E), "BI' (rmv)": lambda: qp.BI.rmv(lam_I),
+        "K+ (f32, unrefined)": lambda: solver.kplus.mv(v),
+        "BE (mv)": lambda: qp.BE.mv(v), "BI (mv)": lambda: qp.BI.mv(v),
+        "P (coarse projector)": lambda: pf.apply_p(lam),
+        "G'G (the penalty term)": lambda: pf.G.rmv(pf.G.mv(lam)),
+        "K+ refined (2 steps)": lambda: solver.kplus_post.mv(v),
+    }
+    for name, fn in parts.items():
+        log(f"[contact] breakdown {name}: {cuda_ms(fn, reps=5, warmup=1):.3f} ms")
+    del solver, qp, pf
+
+    # the same solve through the plain gather version
+    gather_apply.launches = 0
+    plain = FetiSolverSparse(prob, FetiOptions(**base, gather_kernel=False), BI=BI, cI=cI,
+                             device=dev, **f32)
+    rq, tq = timed(plain)
+    del plain
+    if gather_apply.launches != 0:
+        raise AssertionError("contact: gather_kernel=False launched the kernel")
+    if smalxe_counts(rq.result) != smalxe_counts(r1.result) or \
+            not np.array_equal(rq.x_global, r1.x_global):
+        raise AssertionError(f"contact: kernel and plain solves differ: "
+                             f"{smalxe_counts(r1.result)} vs {smalxe_counts(rq.result)}")
+    log(f"[contact] 8a gather_kernel=False: same counts, bitwise equal x_global; {tq:.3f} s")
+
+    # ---- 8b: SMALBE proper, the unprojected dual ---------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    gather_apply.launches = 0  # count this path's launches only
+    solver = FetiSolverSparse(prob, FetiOptions(**base, project=False,
+                                                smalxe=SMALXEOptions(rtol_E=0.1)),
+                              BI=BI, cI=cI, device=dev, **f32)
+    r3, t3 = timed(solver)
+    n_b = gather_apply.launches
+    del solver
+    report("8b SMALBE proper (project=False, rtol_E 0.1)", r3, t3, n_b)
+    xb = r3.x_global
+    dx = float(np.abs(xb - x).max())
+    over_b = float((xb[far] - cap).max())
+    kkt_b, mu_rel_b = box_kkt(A, b, far, cap, xb)
+    # the augmented Lagrangian holds G lambda = e only to rtol_E x its
+    # tolerance, and a residual there shifts whole subdomains by a constant:
+    # x leaves the projected solve's by 7e-4 of the cap and the KKT residual
+    # is ten times the projected solve's, so the limits are 1.5e-3 of the cap
+    # and 1e-2 ||b||; the far face is held under the cap to 5e-5 of it (8a: 2e-5)
+    # and every far-face multiplier to its sign, as in 8a
+    log(f"[contact] 8b on the host (scipy f64): max |x - x_projected| {dx:.4e} = {dx / cap:.3e} "
+        f"of the cap (limit 1.5e-3), max(x - cap) on the far face {over_b:.3e} (limit 5e-5 cap "
+        f"= {2.5 * feas:.3e}), natural KKT residual of the assembled box QP {kkt_b:.3e} ||b|| "
+        f"(limit 1e-2), least far-face multiplier {mu_rel_b:.3e} of the largest (limit >= 0); "
+        f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    res = r3.result
+    if res.reason != 2 or res.iterations <= 1 or res.M1_updates < 1:
+        raise AssertionError(f"contact 8b: reason {res.reason}, outer {res.iterations}, M1 "
+                             f"updates {res.M1_updates}")
+    if not (np.isfinite(xb).all() and dx <= 1.5e-3 * cap and over_b <= 2.5 * feas
+            and kkt_b <= 1e-2 and mu_rel_b >= 0):
+        raise AssertionError(f"contact 8b: dx {dx}, over {over_b}, KKT {kkt_b}, least "
+                             f"multiplier {mu_rel_b}")
+    if n_b < 4 * res.nmv:
+        raise AssertionError(f"contact 8b: {n_b} gather launches for {res.nmv} products")
+    launches += n_b
+    del A, prob, BI
+
+    # ---- 8c: the lumped dual preconditioner on the twin ---------------------
+    cells, grid = TWIN
+    tprob = build_sparse(cells, grid)
+    gather_apply.launches = 0  # count this path's launches only
+    solver = FetiSolverSparse(tprob, FetiOptions(gluing="nonred", pc_dual="lumped"),
+                              primal_refine=1, device=dev, **f32)
+    ra, ta = timed(solver)
+    rb, tb = timed(solver, b_loc=tprob.b_loc * 2.0)
+    n_c = gather_apply.launches
+    A, b = assembled_system(cells)
+    resid = np.linalg.norm(A @ ra.x_global - b) / np.linalg.norm(b)
+    lin = np.abs(rb.x_global - 2.0 * ra.x_global).max() / np.abs(rb.x_global).max()
+    its_a, its_b = ([r.iterations for r in rr.results] for rr in (ra, rb))
+    log(f"[contact] 8c lumped on the twin {cells} / {grid}: first (eager) solve {its_a} dual "
+        f"iterations in {ta:.3f} s, warm (fast path) {its_b} in {tb:.3f} s, reasons "
+        f"{[r.reason for r in ra.results + rb.results]}, assembled residual {resid:.3e}, "
+        f"|x2 - 2 x1|/|x2| {lin:.3e}; gather_apply launches {n_c}")
+    if ra.dual_qp is None or rb.dual_qp is not None:
+        raise AssertionError("lumped twin: first solve not eager or warm solve not fast")
+    if not all(r.reason == 2 for r in ra.results + rb.results) or its_a[0] != its_b[0] \
+            or not resid <= 1e-8 or not lin <= 1e-6:
+        raise AssertionError(f"lumped twin failed: {its_a} vs {its_b}, residual {resid}")
+    if n_c <= 0:
+        raise AssertionError("lumped twin: the gather kernel was never launched")
+    return launches + n_c
 
 
 def random_sparse(m, n, nnz, rng):
@@ -722,6 +976,8 @@ def main():
     launches = phase_main(prob, t_host_prob, dev)
     del prob
     sell_launches = phase_qp(jb, jb_rcm, t_host_jb, dev)
+    del jb, jb_rcm
+    launches += phase_contact(dev)
 
     print(json.dumps({"kernels": [
         {"name": "gather_apply", "route": "cuda",

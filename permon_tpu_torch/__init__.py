@@ -16,11 +16,13 @@ Idiom of the port:
 - no ``jit``: ``lax.scan`` is a Python loop, ``lax.while_loop`` a Python
   loop with one host check per iteration.
 
-Ported so far: the large-path linear TFETI solve
-(:mod:`permon_tpu_torch.feti.large`) and the general QP path
-(``QP.create`` -> ``make_operator`` -> ``SEll`` / ``Dia`` -> ``solve`` ->
-MPRGP / CG); everything else raises ``NotImplementedError`` pointing at
-ROADMAP.md.  Entry points run on the card: ``device=None`` means the first
+Ported so far: the large-path TFETI solve, linear and with contact
+(:mod:`permon_tpu_torch.feti.large`: inequality rows ``BI``/``cI``,
+Dirichlet rows or in-Hessian elimination, SMALXE around MPRGP on the
+projected or the unprojected dual, the lumped dual preconditioner), and
+the general QP path (``QP.create`` -> ``make_operator`` -> ``SEll`` /
+``Dia`` -> ``solve`` -> MPRGP / CG / SMALXE); everything else raises
+``NotImplementedError`` pointing at ROADMAP.md.  Entry points run on the card: ``device=None`` means the first
 CUDA device and raises without one; pass ``device="cpu"`` for the CPU.
 """
 
@@ -80,13 +82,16 @@ def not_ported(what: str) -> NotImplementedError:
 # the public names of the general QP path; imported last because the
 # submodules import the helpers above from this module
 from .core.convergence import ConvergedReason, Tolerances  # noqa: E402
-from .core.linop import aslinearoperator  # noqa: E402
+from .core.linop import Penalized, VStack, aslinearoperator  # noqa: E402
 from .core.matutils import make_operator  # noqa: E402
 from .qp.qp import QP  # noqa: E402
 from .qpc.box import BoxConstraint  # noqa: E402
 from .solvers.driver import make_solver, solve  # noqa: E402
 from .solvers.mprgp import MPRGPOptions  # noqa: E402
+from .solvers.smalxe import SMALXEOptions, smalxe  # noqa: E402
+from .pc.dual import PCDual  # noqa: E402
 
 __all__ = ["Struct", "DeviceLike", "resolve_device", "as_torch_dtype", "not_ported",
            "QP", "solve", "make_solver", "make_operator", "aslinearoperator",
-           "Tolerances", "ConvergedReason", "BoxConstraint", "MPRGPOptions"]
+           "Tolerances", "ConvergedReason", "BoxConstraint", "MPRGPOptions",
+           "SMALXEOptions", "smalxe", "PCDual", "VStack", "Penalized"]

@@ -8,8 +8,8 @@ An operator is a plain dataclass with
 holding its tensors on one device.  Implicit composition (never
 materialized) follows the reference's MatProd idiom (reference:
 src/mat/impls/composite/matprod.c).  Ported: the operators the large-path
-TFETI slice and the general QP path use; ``VStack``, ``Penalized``,
-``OneRow`` and ``Timer`` wait (ROADMAP.md).
+TFETI solves (linear and contact) and the general QP path use; ``Timer``
+waits (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -334,6 +334,90 @@ class Product(LinearOperator):
         for op in self.ops:
             x = op.rmv(x)
         return x
+
+
+@dataclasses.dataclass
+class VStack(LinearOperator):
+    """Vertically stacked operator [B0; B1; ...] — the analog of the 2x1
+    MATNESTPERMON the reference builds when merging BE and BI into one
+    constraint matrix B (reference: QPSetUpInnerObjects, qp.c:492-598).
+    ``rmv`` adds the blocks' contributions in the order of ``ops``."""
+
+    ops: Tuple[Any, ...]
+
+    @property
+    def shape(self):
+        return (sum(op.shape[0] for op in self.ops), self.ops[0].shape[1])
+
+    @property
+    def row_offsets(self):
+        offs, o = [], 0
+        for op in self.ops:
+            offs.append((o, o + op.shape[0]))
+            o += op.shape[0]
+        return offs
+
+    def mv(self, x):
+        return torch.cat([op.mv(x) for op in self.ops])
+
+    def rmv(self, y):
+        out = None
+        for op, (lo, hi) in zip(self.ops, self.row_offsets):
+            contrib = op.rmv(y[lo:hi])
+            out = contrib if out is None else out + contrib
+        return out
+
+    def todense(self):
+        return torch.cat([op.todense() for op in self.ops], dim=0)
+
+
+@dataclasses.dataclass
+class Penalized(LinearOperator):
+    """y = A @ x + rho * B^T (B x) — the augmented-Lagrangian Hessian.
+    ``rho`` is a 0-dim tensor or a float; SMALXE swaps it between outer
+    iterations with ``.replace`` (reference: MatPenalizedUpdatePenalty,
+    src/qp/utils/matpenalized.c:4-120)."""
+
+    a: Any
+    b: Any  # the constraint operator B (m_dual x n)
+    rho: Any
+
+    @property
+    def shape(self):
+        return self.a.shape
+
+    def mv(self, x):
+        return self.a.mv(x) + self.rho * self.b.rmv(self.b.mv(x))
+
+    rmv = mv  # symmetric by construction (A symmetric in QP context)
+
+    def mv_parts(self, x):
+        """(A x + rho B'B x, B x), so callers can reuse B x (reference:
+        smalxe.c:246-285)."""
+        bx = self.b.mv(x)
+        return self.a.mv(x) + self.rho * self.b.rmv(bx), bx
+
+
+@dataclasses.dataclass
+class OneRow(LinearOperator):
+    """1 x n operator from a vector: mv = [v'x], rmv = y[0]*v — the MATONEROW
+    analog used for single scalar constraints (reference:
+    src/mat/impls/onerow/onerow.c:5-50)."""
+
+    v: torch.Tensor
+
+    @property
+    def shape(self):
+        return (1, int(self.v.shape[0]))
+
+    def mv(self, x):
+        return torch.vdot(self.v, x)[None]
+
+    def rmv(self, y):
+        return y[0] * self.v
+
+    def todense(self):
+        return self.v[None, :]
 
 
 def aslinearoperator(a, device=None) -> LinearOperator:

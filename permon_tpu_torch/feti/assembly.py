@@ -94,6 +94,34 @@ def build_gluing(l2g: np.ndarray, gluing: str = "nonred", scale: bool = True,
     return rows, cols, vals, nrows
 
 
+def _dirichlet_copies_sorted(dg: np.ndarray, flat: np.ndarray):
+    """(dirichlet index, flat position) pairs by one stable sort of the
+    flattened l2g and two sorted searches — O(n log n); the pairs come in
+    dg order, each dof's copies in ascending flat (= rank) order."""
+    order = np.argsort(flat, kind="stable")
+    sf = flat[order]
+    lo = np.searchsorted(sf, dg, side="left")
+    counts = np.searchsorted(sf, dg, side="right") - lo
+    pos_d = np.repeat(np.arange(len(dg)), counts)
+    first = np.cumsum(counts) - counts  # where each dof's run starts in the output
+    take = np.repeat(lo - first, counts) + np.arange(int(counts.sum()))
+    return pos_d, order[take]
+
+
+def build_dirichlet_rows(prob):
+    """Identity rows on every decomposed copy of each Dirichlet dof (the
+    enforce_by_B path, qpfeti.c:153-312).  Returns (rows, cols, vals, n_rows,
+    c) with c the prescribed values.  The sorted search serves every size
+    (the JAX package also keeps an O(nd * n) broadcast for small problems;
+    both give the same arrays)."""
+    dg = prob.dirichlet_global()
+    dvals = (np.asarray(prob.dirichlet_values, dtype=np.float64)
+             if prob.dirichlet_values is not None else np.zeros(len(prob.dirichlet)))
+    pos_d, pos_flat = _dirichlet_copies_sorted(dg, prob.l2g.reshape(-1))
+    r = len(pos_flat)
+    return np.arange(r), pos_flat.astype(np.int64), np.ones(r), r, dvals[pos_d]
+
+
 def constant_nullspace_columns(prob, fixed_mask: Optional[np.ndarray] = None):
     """One normalized constant column per floating subdomain (Poisson);
     ``fixed_mask[s]`` True blocks get no column (qpfeti.c:281-301)."""

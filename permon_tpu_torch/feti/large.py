@@ -1,30 +1,42 @@
 """Large-scale TFETI — sparse per-subdomain blocks + band Cholesky K+; the
-port of :mod:`permon_tpu.feti.large` for the LINEAR projected solve.
+port of :mod:`permon_tpu.feti.large`: linear solves and contact.
 
 - :class:`SparseFetiProblem` holds per-subdomain scipy sparse blocks;
 - the decomposed operator A is a :class:`~permon_tpu_torch.core.dia.
   BlockDia` stencil, K+ a :class:`~permon_tpu_torch.core.band.BandCholInv`
   with fixing-dof regularization of the floating blocks, optionally f32
   factors with iterative refinement against the f64 stencil;
-- dualize -> homogenize -> project -> PCPG, then the primal solution is
-  reassembled, with optional f64 primal defect-correction passes;
-- B and B' run through the plane-major gather tables and the CUDA gather
-  kernel (core/sell.py).
+- Dirichlet dofs are enforced by identity rows of BE with a nonzero cE
+  (TFETI, the default) or eliminated into the Hessian
+  (``dirichlet_by_B=False``: :func:`eliminate_dirichlet_in_sparse_blocks`,
+  the touched blocks grounded);
+- linear: dualize -> homogenize -> project -> PCPG, optionally with the
+  lumped dual preconditioner (``pc_dual='lumped'``), then the primal
+  solution is reassembled, with optional f64 primal defect-correction
+  passes;
+- contact (``BI``/``cI``: inequality rows B_I u <= c_I): the dual keeps a
+  box (lambda_I >= 0) and is solved by SMALXE around MPRGP — on the
+  projected dual P F P (one outer iteration: the iterates stay in ker G),
+  or with ``project=False`` on the unprojected dual, where the augmented
+  Lagrangian enforces G lambda = e itself (SMALBE proper);
+- B and B' of BE and of BI run through the plane-major gather tables and
+  the CUDA gather kernel (core/sell.py).
 
 :class:`FetiSolverSparse` factorizes once and re-solves with new right-hand
 sides; in the sparse-coarse regime (k*(N+m) > 2^25, e.g. the 101^3 north
-star) every solve, the first included, runs :func:`make_fast_solve_fn`:
-the whole chain and the defect correction on the device, reassembly
-through a fixed-order gather table (no scatter-add).
+star, or ``coarse='sparse'``) every solve, the first included, runs
+:func:`make_fast_solve_fn`: the whole chain and the defect correction on
+the device, reassembly through a fixed-order gather table (no scatter-add).
 
-Outside the slice (contact, elasticity, Dirichlet rows, meshes, lumped
-preconditioning, other precisions) the functions raise
-``NotImplementedError``; see ROADMAP.md.
+Outside the slice (elasticity, meshes, other precisions, ``orth_G``,
+``reorder_rcm``) the functions raise ``NotImplementedError``; see
+ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Any, List, Optional
 
@@ -37,7 +49,8 @@ from ..core.convergence import Tolerances
 from ..core.detred import deterministic_mode
 from ..core.dia import BlockDia, RegularizedBlockDia
 from ..core.extension import GatherTable, SubdomainExtension, pack_planes
-from ..core.linop import Ell
+from ..core.linop import Ell, VStack
+from ..pc.dual import PCDual
 from ..qp.projector import Projector
 from ..qp.qp import QP
 from ..qp.transforms import (
@@ -50,8 +63,12 @@ from ..qp.transforms import (
     homogenize_eq,
 )
 from ..solvers.cg import cg
-from .assembly import build_gluing, constant_nullspace_columns, dirichlet_global_ids
+from ..solvers.smalxe import smalxe
+from .assembly import (build_dirichlet_rows, build_gluing, constant_nullspace_columns,
+                       decompose_rhs_by_multiplicity, dirichlet_global_ids)
 from .solve import FetiOptions, FetiResult, assemble_global_mean
+
+_log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -90,25 +107,127 @@ class SparseFetiProblem:
         return int(self.l2g.max()) + 1
 
 
-def _check_slice(prob: SparseFetiProblem, opts: FetiOptions, BI=None) -> None:
-    """Raise for every option the ported slice does not cover."""
+def _check_slice(opts: FetiOptions, contact: bool) -> None:
+    """Raise for every option the port does not cover yet (ROADMAP.md), and,
+    in the JAX package's words, for the two it rejects on the large path."""
     checks = [
         (opts.mesh is not None, "FetiOptions(mesh=...) (multi-device)"),
         (opts.qppf_redundancy, "FetiOptions(qppf_redundancy=True)"),
-        (opts.throughput, "FetiOptions(throughput=True)"),
-        (opts.pc_dual != "none", f"FetiOptions(pc_dual={opts.pc_dual!r})"),
-        (BI is not None, "contact inequalities (BI/cI)"),
         (opts.nullspace != "constant", f"FetiOptions(nullspace={opts.nullspace!r})"),
-        (not opts.project, "FetiOptions(project=False)"),
         (opts.orth_G is not None, "FetiOptions(orth_G=...)"),
         (opts.precision != "f64", f"FetiOptions(precision={opts.precision!r})"),
-        (len(prob.dirichlet) > 0, "Dirichlet dofs on the problem (build_dirichlet_rows "
-                                  "/ in-Hessian elimination)"),
         (opts.coarse not in ("auto", "dense", "sparse"), f"coarse={opts.coarse!r}"),
     ]
     for bad, what in checks:
         if bad:
             raise not_ported(what)
+    if opts.pc_dual not in ("none", "lumped"):
+        raise ValueError(f"pc_dual {opts.pc_dual!r}: 'none' or 'lumped'")
+    if opts.throughput:
+        raise NotImplementedError(
+            "throughput=True (the dense leaf/explicit-inverse iteration, "
+            "feti/leaf.py) has no large-path analog: the band K+ keeps its "
+            "factors implicit and B/B' already apply as vectorized gather "
+            "tables/kernels here — drop the flag, or use feti_solve for "
+            "the dense leaf path"
+        )
+    if not opts.project and not contact:
+        raise NotImplementedError(
+            "the large path runs the projected dual pipeline for LINEAR "
+            "solves; project=False (SMALXE on the unprojected dual) is a "
+            "tutorial-scale option there — use feti_solve.  For CONTACT "
+            "(BI given) project=False selects the production SMALBE: the "
+            "augmented-Lagrangian outer loop enforces G lam = e itself "
+            "(smalxe.c:892-997)"
+        )
+
+
+def _check_contact_refine(BI, primal_refine: int) -> None:
+    if BI is not None and primal_refine:
+        raise ValueError(
+            "primal_refine assumes a LINEAR solve; with contact "
+            "inequalities the defect correction is invalid — use f64 "
+            "factors or kplus_refine instead"
+        )
+
+
+@dataclasses.dataclass
+class DirichletElim:
+    """Rhs-side record of the Dirichlet-in-Hessian elimination: repeated
+    solves with NEW right-hand sides (FetiSolverSparse.solve(b_loc=...))
+    must re-apply the same affine rhs transform — lift by -K_orig[:, i] *
+    value, then alpha * value on the Dirichlet rows — or the boundary
+    conditions are silently violated.  Also carries the ELIMINATED blocks
+    so primal defect-correction passes compute their residual against the
+    operator that was actually solved (the original singular K would
+    inject O(r/alpha) errors at the Dirichlet dofs every pass)."""
+
+    K_elim: List[Any]  # ns csr blocks AFTER elimination
+    touched: np.ndarray  # (ns,) bool
+    alpha: float
+    lift: dict  # s -> (nl,) precomputed K_orig_s @ vvec_s
+    fix_idx: dict  # s -> local Dirichlet indices
+    fix_val: dict  # s -> alpha * values at those indices
+
+    def apply_b(self, b_loc: np.ndarray) -> np.ndarray:
+        b = np.array(b_loc, dtype=np.float64, copy=True)
+        for s, idx in self.fix_idx.items():
+            b[s] -= self.lift[s]
+            b[s, idx] = self.fix_val[s]
+        return b
+
+    def eliminated_prob(self, prob: "SparseFetiProblem") -> "SparseFetiProblem":
+        """The problem as actually solved: eliminated blocks + transformed
+        rhs, Dirichlet set cleared (it lives in the operator now)."""
+        return dataclasses.replace(
+            prob, K_blocks=self.K_elim, b_loc=self.apply_b(prob.b_loc),
+            dirichlet=np.zeros(0, dtype=np.int64), dirichlet_values=None,
+        )
+
+
+def eliminate_dirichlet_in_sparse_blocks(prob: SparseFetiProblem, K_blocks):
+    """Sparse-blocks Dirichlet-in-Hessian: for every copy (s, i) of a
+    Dirichlet dof, lift the rhs by -K_s[:, i] * value, zero row/column i
+    symmetrically, and put alpha = max|diag| (with alpha * value on the
+    rhs) on the diagonal — MatZeroRowsColumnsIS semantics
+    (qpfeti.c:280-306).  Returns (K_blocks', b_loc', touched, elim) with
+    ``touched[s]`` true when block s holds a Dirichlet copy (those blocks
+    are non-singular afterwards and are grounded out of the nullspace,
+    the classical-FETI R-row zeroing) and ``elim`` a :class:`DirichletElim`
+    record replaying the rhs transform on new right-hand sides."""
+    import scipy.sparse as sp
+
+    b = prob.b_loc.copy()
+    dglob = prob.dirichlet_global()
+    dvals = (np.asarray(prob.dirichlet_values, dtype=np.float64)
+             if prob.dirichlet_values is not None else np.zeros(len(dglob)))
+    # value of a global Dirichlet dof by sorted search (a dof listed twice
+    # takes its last value)
+    order = np.argsort(dglob, kind="stable")
+    dsorted, vsorted = dglob[order], dvals[order]
+    alpha = max(max(abs(K.diagonal()).max() for K in K_blocks), 1.0)
+    touched = np.zeros(prob.ns, dtype=bool)
+    K_out = []
+    lift, fix_idx, fix_val = {}, {}, {}
+    for s, K in enumerate(K_blocks):
+        here = np.isin(prob.l2g[s], dglob)
+        idx = np.flatnonzero(here)
+        if not len(idx):
+            K_out.append(K)
+            continue
+        touched[s] = True
+        vvec = np.zeros(prob.nl)
+        vvec[idx] = vsorted[np.searchsorted(dsorted, prob.l2g[s, idx], side="right") - 1]
+        lift[s] = K @ vvec
+        b[s] -= lift[s]
+        D = sp.diags((~here).astype(K.dtype))
+        K_out.append(((D @ K @ D) + sp.diags(alpha * here.astype(K.dtype))).tocsr())
+        fix_idx[s] = idx
+        fix_val[s] = alpha * vvec[idx]
+        b[s, idx] = fix_val[s]
+    elim = DirichletElim(K_elim=K_out, touched=touched, alpha=float(alpha),
+                         lift=lift, fix_idx=fix_idx, fix_val=fix_val)
+    return K_out, b, touched, elim
 
 
 def _sync(dev: torch.device) -> None:
@@ -138,46 +257,85 @@ def padded(prob: SparseFetiProblem, nlp: int) -> SparseFetiProblem:
     return dataclasses.replace(prob, l2g=l2g, b_loc=b_loc)
 
 
+def _device_extension(B: SubdomainExtension, opts: FetiOptions, device) -> SubdomainExtension:
+    """An extension operator with its gather tables on ``device`` (routed
+    through the plain version for gather_kernel=False)."""
+    B = B.with_gather_apply(device)
+    return B.with_kernel(False) if opts.gather_kernel is False else B
+
+
 def gluing_extension(l2g: np.ndarray, opts: FetiOptions, device) -> SubdomainExtension:
-    """The gluing operator BE over a padded l2g, with its gather tables on
-    ``device`` (routed through the plain version for gather_kernel=False)."""
+    """The gluing operator over a padded l2g (no Dirichlet rows), with its
+    gather tables on ``device``."""
     ns, nlp = l2g.shape
     gr, gc, gv, ng = build_gluing(l2g, opts.gluing, opts.scale)
-    BE = SubdomainExtension.from_coo(gr, gc, gv, m=ng, ns=ns, nl=nlp).with_gather_apply(device)
-    return BE.with_kernel(False) if opts.gather_kernel is False else BE
+    return _device_extension(
+        SubdomainExtension.from_coo(gr, gc, gv, m=ng, ns=ns, nl=nlp), opts, device)
 
 
 def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(),
                        NB: Optional[int] = None, kplus_dtype=None,
-                       kplus_refine: int = 0, op_dtype=None, device=None,
-                       timings: Optional[dict] = None):
-    """Build the decomposed QP (A = BlockDia stencil, BE = gluing gather
-    tables, R constant nullspace) and the band K+ on ``device``.  Local
-    sizes are padded to a multiple of the band block size NB (padding dofs
-    get unit diagonals and l2g = -1).  ``timings`` (optional dict) gets
+                       kplus_refine: int = 0, op_dtype=None, BI=None, cI=None,
+                       device=None, timings: Optional[dict] = None):
+    """Build the decomposed QP (A = BlockDia stencil, BE = [Dirichlet rows;]
+    gluing as gather tables, R constant nullspace) and the band K+ on
+    ``device``.  Local sizes are padded to a multiple of the band block
+    size NB (padding dofs get unit diagonals and l2g = -1).
+
+    ``BI``/``cI`` attach contact inequalities B_I u <= c_I given as a
+    :class:`~permon_tpu_torch.core.extension.SubdomainExtension` over the
+    UNPADDED (ns, nl) decomposed space; the operator is re-padded to nlp
+    here and gets its gather tables.  ``timings`` (optional dict) gets
     ``host_setup_s`` and ``factor_s``.
 
-    Returns (qp, kplus, NB, elim) with elim = None (no Dirichlet-in-Hessian
-    elimination in the slice)."""
+    Returns (qp, kplus, NB, elim) — ``elim`` is the :class:`DirichletElim`
+    rhs-transform record when dirichlet_by_B=False eliminated Dirichlet
+    dofs into the Hessian, else None."""
     import scipy.sparse as sp
 
-    _check_slice(prob, opts)
+    _check_slice(opts, contact=BI is not None)
     dev = resolve_device(device)
     t0 = time.perf_counter()
     ns, nl = prob.ns, prob.nl
     K_blocks = [sp.csr_matrix(K) for K in prob.K_blocks]
-    fixed_mask = ~np.asarray(prob.floating, dtype=bool)
+    floating = np.asarray(prob.floating, dtype=bool).copy()
+    elim = None
+    if not opts.dirichlet_by_B and len(prob.dirichlet):
+        # Dirichlet-in-Hessian (classical FETI): symmetric zero-rows-columns
+        # with alpha = max|diag| on the diagonal, rhs lifted by -K[:,i]*val,
+        # and the touched blocks grounded: they get no nullspace column
+        # (qpfeti.c:153-312)
+        K_blocks, b_elim, touched, elim = eliminate_dirichlet_in_sparse_blocks(prob, K_blocks)
+        prob = dataclasses.replace(prob, b_loc=b_elim, dirichlet=np.zeros(0, dtype=np.int64),
+                                   dirichlet_values=None)
+        floating = floating & ~touched
+    fixed_mask = ~floating
     NB, nb, nlp = band_layout(K_blocks, nl, NB)
     probp = padded(prob, nlp)
     l2g, b_loc = probp.l2g, probp.b_loc
-    BE = gluing_extension(l2g, opts, dev)
+
+    blocks_coo, cE_parts, row_off = [], [], 0
+    if opts.dirichlet_by_B and len(prob.dirichlet):
+        dr, dc, dv, nd, cvals = build_dirichlet_rows(probp)
+        blocks_coo.append((dr, dc, dv))
+        cE_parts.append(cvals)
+        row_off = nd
+    gr, gc, gv, ng = build_gluing(l2g, opts.gluing, opts.scale)
+    blocks_coo.append((gr + row_off, gc, gv))
+    cE_parts.append(np.zeros(ng))
+    rows, cols, vals = (np.concatenate([t[i] for t in blocks_coo]) for i in range(3))
+    BE = _device_extension(
+        SubdomainExtension.from_coo(rows, cols, vals, m=row_off + ng, ns=ns, nl=nlp),
+        opts, dev)
+    cE_arr = np.concatenate(cE_parts)
 
     rr, rc, rv, k = constant_nullspace_columns(probp, fixed_mask)
     R = Ell.from_scipy(sp.coo_matrix((rv, (rr, rc)), shape=(ns * nlp, k)), device=dev) if k else None
 
     # Kreg = K + rho R_I (R_I'R_I)^{-1} R_I' stays an EXPLICIT rank-k
     # correction (core/dia.RegularizedBlockDia) injected by the factor loop;
-    # qp.A keeps the original singular K (feti/large.py:359-412)
+    # qp.A — and with it the lumped preconditioner M = B K B' — keeps the
+    # original singular K (feti/large.py:359-412)
     A = BlockDia.from_scipy_blocks(K_blocks, nlp=nlp, dtype=op_dtype, device=dev)
     reg = []
     for s in range(ns):
@@ -216,18 +374,25 @@ def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(
     _sync(dev)
     if timings is not None:
         timings.update(host_setup_s=t1 - t0, factor_s=time.perf_counter() - t1)
-    # an all-zero cE carries no information: the pipeline skips homogenize
-    qp = QP(A=A, b=b, BE=BE, cE=None, R=R)
-    return qp, kplus, NB, None
+    # an all-zero cE carries no information: drop it so the pipeline skips
+    # homogenize_eq (one A apply + coarse solve) entirely
+    qp = QP(A=A, b=b, BE=BE, cE=torch.as_tensor(cE_arr, device=dev) if cE_arr.any() else None,
+            R=R)
+    if BI is not None:
+        BIp = _device_extension(BI.replace(nl=nlp, gB=None, gBt=None), opts, dev)
+        qp = qp.replace(BI=BIp, cI=None if cI is None else torch.as_tensor(
+            cI, dtype=torch.float64, device=dev))
+    return qp, kplus, NB, elim
 
 
 def _solve_prepared(qp, kplus, opts: FetiOptions, tol: Tolerances,
                     kplus_post=None, pf=None):
     """One dual solve of an assembled large-path QP: dualize (band K+) ->
-    [homogenize] -> project -> PCPG, folded back to the decomposed
-    solution.  ``kplus_post`` (the refined K+) serves only the post-solve
-    chain, where f32 noise would be amplified by ||K+||; the dual CG keeps
-    the cheap unrefined applies (feti/large.py:464-574)."""
+    [homogenize] -> project -> PCPG, or SMALXE/MPRGP when the dual keeps a
+    box (contact); folded back to the decomposed solution.  ``kplus_post``
+    (the refined K+) serves only the post-solve chain, where f32 noise
+    would be amplified by ||K+||; the dual solver keeps the cheap unrefined
+    applies (feti/large.py:464-574)."""
     steps = []
     dual, post_d = dualize(qp, kplus=kplus, coarse=opts.coarse, pf=pf)
     if kplus_post is not None:
@@ -240,15 +405,41 @@ def _solve_prepared(qp, kplus, opts: FetiOptions, tol: Tolerances,
         cur, _ = homogenize_eq(cur)
         cur_a, post_h = homogenize_eq(cur_a)
         steps.append((cur_a, post_h))
+
+    def solve_contact(q):
+        res = smalxe(q, opts=opts.smalxe, tol=tol)
+        return compose(steps)(Solution(x=res.x, Bt_lambda=res.Bt_lambda)), res, dual
+
+    if not opts.project:
+        # SMALBE proper (contact; _check_slice rejects the linear case): no
+        # coarse projector at all — the semi-monotonic augmented Lagrangian
+        # enforces G lam = 0 itself while MPRGP handles the box
+        # (smalxe.c:892-997), so the M1/rho/eta adaptation iterates at scale
+        return solve_contact(cur)
+
+    pc = None
+    if opts.pc_dual == "lumped" and qp.box is None and qp.BI is None:
+        pc = PCDual.create(qp.BE, qp.A, "lumped").mv
+    elif opts.pc_dual == "lumped":
+        _log.info("pc_dual='lumped' ignored for contact: the MPRGP inner "
+                  "solver runs unpreconditioned (qps/impls/mpgp)")
+
     if cur.BE is None:
-        res = cg(cur, tol=tol)
+        res = cg(cur, tol=tol, precond=pc)
     else:
         pf_holder = cur
         cur, _ = enforce_eq_by_projector(cur)
         _, post_p = enforce_eq_by_projector(cur_a)
         steps.append((cur, post_p))
+        if cur.box is not None:
+            # contact: the box survives into the projected dual — SMALXE
+            # (SMALBE) outer loop with MPRGP inner, the reference's
+            # -project 1 contact pipeline (smalxe.c:892-997).  The term
+            # rho G'G controls the drift out of im(P), so no reprojection
+            # per iteration is needed
+            return solve_contact(cur)
         # FULL reprojection, w = P r every iteration (pcpg.c:51-134)
-        res = cg(cur, tol=tol, project=pf_holder.pf.apply_p)
+        res = cg(cur, tol=tol, precond=pc, project=pf_holder.pf.apply_p)
     sol = compose(steps)(Solution(x=res.x))
     return sol, res, dual
 
@@ -259,16 +450,21 @@ def feti_solve_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions()
                       primal_refine: int = 0, BI=None, cI=None,
                       device=None) -> FetiResult:
     """TFETI solve on sparse subdomain blocks: dualize (band K+) ->
-    homogenize -> project -> CG, then fold back and assemble the global
-    solution.  ``primal_refine`` > 0 runs that many f64 defect-correction
-    passes over the whole FETI solve (residual of the assembled system on
-    the host in f64, re-decomposed, solved with the same factors)."""
-    _check_slice(prob, opts, BI)
+    homogenize -> project -> CG (SMALXE/MPRGP with contact rows ``BI``,
+    ``cI``), then fold back and assemble the global solution.
+    ``primal_refine`` > 0 runs that many f64 defect-correction passes over
+    the whole FETI solve (residual of the assembled system on the host in
+    f64, re-decomposed, solved with the same factors); linear solves only."""
+    _check_contact_refine(BI, primal_refine)
     with deterministic_mode(opts.deterministic):
-        qp, kplus, NB, _ = assemble_qp_sparse(
+        qp, kplus, NB, elim = assemble_qp_sparse(
             prob, opts, NB=NB, kplus_dtype=kplus_dtype, kplus_refine=kplus_refine,
-            op_dtype=op_dtype, device=device,
+            op_dtype=op_dtype, BI=BI, cI=cI, device=device,
         )
+        if elim is not None:
+            # defect-correction passes must see the ELIMINATED system (the
+            # one the factors solve)
+            prob = elim.eliminated_prob(prob)
         kplus_post = None
         if kplus.refine and kplus.op is not None:
             kplus_post = kplus
@@ -279,8 +475,6 @@ def feti_solve_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions()
 def _primal_defect_rhs(prob, K_csr, x_global, nlp):
     """f64 host residual of the assembled system in decomposed, D-split,
     padded form (feti/large.py:664-681)."""
-    from .assembly import decompose_rhs_by_multiplicity
-
     pad = np.asarray(prob.l2g < 0)
     u_lift = np.where(pad, 0.0, x_global[np.maximum(prob.l2g, 0)])
     r_loc = prob.b_loc - np.stack([K_csr[s] @ u_lift[s] for s in range(prob.ns)])
@@ -305,8 +499,16 @@ def _run_prepared_sparse(prob, opts, tol, qp, kplus, kplus_post, primal_refine,
     if primal_refine:
         K_csr = [sp.csr_matrix(K) for K in prob.K_blocks]
     for _ in range(primal_refine):
-        r_flat, _ = _primal_defect_rhs(prob, K_csr, x_global, nlp)
+        r_flat, u_lift = _primal_defect_rhs(prob, K_csr, x_global, nlp)
         qp_r = qp.replace(b=torch.as_tensor(r_flat, device=qp.b.device))
+        if qp.cE is not None:
+            # the correction must close the remaining constraint gap too:
+            # BE dx = cE - BE u  (u = consistent lift, so gluing rows of
+            # BE u vanish and only Dirichlet rows contribute)
+            u_pad = np.zeros((prob.ns, nlp))
+            u_pad[:, : prob.nl] = u_lift
+            qp_r = qp_r.replace(cE=qp.cE - qp.BE.mv(
+                torch.as_tensor(u_pad.reshape(-1), device=qp.b.device)))
         sol_r, res, dual = _solve_prepared(qp_r, kplus, opts, tol,
                                            kplus_post=kplus_post, pf=dual.pf)
         results.append(res)
@@ -318,15 +520,16 @@ def _run_prepared_sparse(prob, opts, tol, qp, kplus, kplus_post, primal_refine,
 
 def build_sparse_pf(qp, opts: FetiOptions):
     """Coarse projector for the sparse-coarse regime (host sparse G = R'B'
-    and Gram, qp/transforms._sparse_coarse); None outside it (small
-    problems keep the dense device Gram of the dualize chain)."""
+    and Gram over B = [BE; BI], qp/transforms._sparse_coarse); None outside
+    it (small problems keep the dense device Gram of the dualize chain)."""
     if qp.R is None or qp.R.shape[1] == 0 or opts.coarse == "dense":
         return None
+    B = qp.BE if qp.BI is None else VStack((qp.BE, qp.BI))
     k = qp.R.shape[1]
-    big = k * (qp.R.shape[0] + qp.BE.shape[0]) > SPARSE_COARSE_THRESHOLD
+    big = k * (qp.R.shape[0] + B.shape[0]) > SPARSE_COARSE_THRESHOLD
     if not (big or opts.coarse == "sparse"):
         return None
-    sc = _sparse_coarse(qp.R, qp.BE)
+    sc = _sparse_coarse(qp.R, B)
     if sc is None:
         return None
     G, gram = sc
@@ -424,17 +627,20 @@ class FetiSolverSparse:
                  NB: Optional[int] = None, kplus_dtype=None, kplus_refine: int = 0,
                  op_dtype=None, primal_refine: int = 0, BI=None, cI=None,
                  device=None):
-        _check_slice(prob, opts, BI)
+        _check_contact_refine(BI, primal_refine)
         self.device = resolve_device(device)
         self.opts = opts
         self.primal_refine = primal_refine
         #: host_setup_s and factor_s of the constructor
         self.timings: dict = {}
-        self.qp, kplus, self.NB, _ = assemble_qp_sparse(
+        self.qp, kplus, self.NB, self._elim = assemble_qp_sparse(
             prob, opts, NB=NB, kplus_dtype=kplus_dtype, kplus_refine=kplus_refine,
-            op_dtype=op_dtype, device=self.device, timings=self.timings,
+            op_dtype=op_dtype, BI=BI, cI=cI, device=self.device, timings=self.timings,
         )
-        self.prob = prob
+        # keep the problem AS SOLVED: with Dirichlet-in-Hessian the stored
+        # blocks/rhs are the eliminated ones, so defect-correction residuals
+        # and re-solve rhs handling stay consistent with the factors
+        self.prob = prob if self._elim is None else self._elim.eliminated_prob(prob)
         self.kplus_post = None
         if kplus.refine and kplus.op is not None:
             self.kplus_post = kplus
@@ -454,7 +660,13 @@ class FetiSolverSparse:
         prob, qp = self.prob, self.qp
         self._ensure_pf()
         if b_loc is not None:
-            prob = dataclasses.replace(prob, b_loc=np.asarray(b_loc))
+            b_loc = np.asarray(b_loc)
+            if self._elim is not None:
+                # re-apply the Dirichlet-in-Hessian rhs transform (lift +
+                # alpha*value rows) — a raw rhs against the eliminated
+                # factors silently violates the boundary conditions
+                b_loc = self._elim.apply_b(b_loc)
+            prob = dataclasses.replace(prob, b_loc=b_loc)
             b_pad = np.zeros((prob.ns, qp.BE.nl))
             b_pad[:, : prob.nl] = prob.b_loc
             qp = qp.replace(b=torch.as_tensor(b_pad.reshape(-1), device=self.device))

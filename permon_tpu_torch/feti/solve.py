@@ -2,10 +2,12 @@
 and ``assemble_global_mean`` from :mod:`permon_tpu.feti.solve`.
 
 ``FetiOptions`` keeps the JAX package's field names and defaults, so one
-options object reads the same in both packages.  The large-path slice
-takes ``gluing`` ('nonred' | 'full'), ``scale``, ``coarse``,
-``deterministic`` and ``gather_kernel``; every other field must keep its
-default, or the solve raises ``NotImplementedError`` (see ROADMAP.md).
+options object reads the same in both packages.  The large path takes
+``gluing`` ('nonred' | 'full'), ``scale``, ``dirichlet_by_B``, ``project``
+(False only with contact: SMALBE on the unprojected dual), ``pc_dual``,
+``coarse``, ``deterministic``, ``gather_kernel`` and ``smalxe``; every
+other field must keep its default, or the solve raises
+``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import dataclasses
 from typing import Any, Optional
 
 import numpy as np
+
+from ..solvers.smalxe import SMALXEOptions
 
 
 @dataclasses.dataclass
@@ -44,9 +48,8 @@ class FetiOptions:
     #: threshold priced the TPU's SELL schedule, which the port does not
     #: have); False selects the plain PyTorch version
     gather_kernel: Optional[bool] = None
-    #: SMALXE options of the contact path (not ported; kept for the field
-    #: set of the JAX package)
-    smalxe: Optional[Any] = None
+    #: SMALXE options of the contact solves
+    smalxe: SMALXEOptions = dataclasses.field(default_factory=SMALXEOptions)
 
 
 @dataclasses.dataclass
@@ -54,11 +57,11 @@ class FetiResult:
     x_global: np.ndarray
     u_decomposed: Any
     solution: Any
-    result: Any  # inner solver result (CGResult)
+    result: Any  # solver result: CGResult, or SMALXEResult for contact
     qp: Any  # the decomposed primal QP
     dual_qp: Any
-    #: every dual CG result of the solve, in order (the main solve, then one
-    #: per primal defect-correction pass); ``result`` is the last of them
+    #: every dual solve's result, in order (the main solve, then one per
+    #: primal defect-correction pass); ``result`` is the last of them
     results: Optional[list] = None
 
 

@@ -7,8 +7,9 @@ It dispatches on the class NAME and never imports jax or permon_tpu.
 
 Covered: SubdomainExtension (with its gather tables and overflow COO),
 BlockDia, RegularizedBlockDia, BandCholInv, Projector (dense factors),
-Dense / DenseTree, Ell, Dia, SEll (decoded from its round plan),
-BoxConstraint and QP.
+Dense / DenseTree, Ell, Dia, SEll (decoded from its round plan), VStack,
+Penalized, OneRow, PCDual, BoxConstraint, QP (with BI / cI) and the options
+objects SMALXEOptions / MPRGPOptions (field by field).
 """
 
 from __future__ import annotations
@@ -20,11 +21,14 @@ from . import not_ported, resolve_device
 from .core.band import BandCholInv
 from .core.dia import BlockDia, Dia, RegularizedBlockDia
 from .core.extension import GatherTable, SubdomainExtension
-from .core.linop import Dense, DenseTree, Ell
+from .core.linop import Dense, DenseTree, Ell, OneRow, Penalized, VStack
 from .core.sell import SEll
+from .pc.dual import PCDual
 from .qp.projector import Projector
 from .qp.qp import QP
 from .qpc.box import BoxConstraint
+from .solvers.mprgp import MPRGPOptions
+from .solvers.smalxe import SMALXEOptions
 
 
 def _t(a, dev, dtype=None):
@@ -134,6 +138,47 @@ def sell_from_arrays(obj, device=None) -> SEll:
                            with_transpose=obj.t_plan is not None, device=device)
 
 
+def vstack_from_arrays(obj, device=None) -> VStack:
+    return VStack(tuple(from_arrays(op, device) for op in obj.ops))
+
+
+def penalized_from_arrays(obj, device=None) -> Penalized:
+    dev = resolve_device(device)
+    return Penalized(a=from_arrays(obj.a, dev), b=from_arrays(obj.b, dev), rho=_t(obj.rho, dev))
+
+
+def onerow_from_arrays(obj, device=None) -> OneRow:
+    return OneRow(v=_t(obj.v, resolve_device(device)))
+
+
+def pcdual_from_arrays(obj, device=None) -> PCDual:
+    return PCDual.create(from_arrays(obj.B, device),
+                         None if obj.K is None else from_arrays(obj.K, device), obj.pc_type)
+
+
+def _options_from_fields(cls, obj, **converted):
+    """An options dataclass of the port from the JAX package's, field by
+    field; a field the port does not have raises."""
+    import dataclasses
+
+    theirs = {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+    ours = {f.name for f in dataclasses.fields(cls)}
+    if set(theirs) - ours:
+        raise not_ported(f"{cls.__name__} fields {sorted(set(theirs) - ours)}")
+    theirs.update(converted)
+    return cls(**theirs)
+
+
+def mprgp_options_from_arrays(obj, device=None) -> MPRGPOptions:
+    return _options_from_fields(MPRGPOptions, obj)
+
+
+def smalxe_options_from_arrays(obj, device=None) -> SMALXEOptions:
+    maxeig_inner = None if obj.maxeig_inner is None else float(np.asarray(obj.maxeig_inner))
+    return _options_from_fields(SMALXEOptions, obj, inner=mprgp_options_from_arrays(obj.inner),
+                                maxeig_inner=maxeig_inner)
+
+
 def box_from_arrays(obj, device=None) -> BoxConstraint:
     dev = resolve_device(device)
     return BoxConstraint(lb=_t(obj.lb, dev), ub=_t(obj.ub, dev), astol=float(obj.astol),
@@ -166,6 +211,12 @@ _BY_NAME = {
     "Dia": dia_from_arrays,
     "SEll": sell_from_arrays,
     "BoxConstraint": box_from_arrays,
+    "VStack": vstack_from_arrays,
+    "Penalized": penalized_from_arrays,
+    "OneRow": onerow_from_arrays,
+    "PCDual": pcdual_from_arrays,
+    "SMALXEOptions": smalxe_options_from_arrays,
+    "MPRGPOptions": mprgp_options_from_arrays,
     "QP": qp_from_arrays,
 }
 

@@ -1,0 +1,1 @@
+"""Preconditioners of the port (the counterpart of ``permon_tpu.pc``)."""

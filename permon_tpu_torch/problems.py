@@ -3,8 +3,10 @@
 JAX, and those modules import the JAX package).  The CPU tests hold each
 array-equal to its original.
 
-Large-path slice: ``build_sparse`` and ``assembled_system`` from
-``examples/feti_large.py``.  General QP path: ``build_ex1`` / ``build_ex2``
+Large path: ``build_sparse``, ``build_obstacle`` (its contact variant) and
+``assembled_system`` from ``examples/feti_large.py``; ``build_contact`` (the
+1-D semicoercive obstacle problem with Dirichlet rows) from
+``examples/feti_contact.py``.  General QP path: ``build_ex1`` / ``build_ex2``
 (the 1-D obstacle tutorials), ``build_jbearing`` (MINPACK-2 DPJB journal
 bearing), ``rcm_permuted`` (reverse Cuthill-McKee reordering of a QP, which
 turns a stencil Hessian into the unstructured pattern of a real mesh) and
@@ -24,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from .core.extension import SubdomainExtension
 from .feti.assembly import decompose_rhs_by_multiplicity
 from .feti.large import SparseFetiProblem
 
@@ -129,6 +132,73 @@ def build_sparse(cells=(24, 24, 24), grid=(2, 2, 2)) -> SparseFetiProblem:
 
     b_loc = decompose_rhs_by_multiplicity(b_loc, l2g)
     return SparseFetiProblem(K_blocks=K_blocks, b_loc=b_loc, l2g=l2g, floating=~fixed_any)
+
+
+def _first_owner_rows(l2g: np.ndarray, wanted: np.ndarray, value: float):
+    """One constraint row per global dof g with ``wanted[g]``, on its first
+    owning copy in (subdomain, local index) order, rows numbered in that
+    order; returns (BI, the global dof of each row).  One stable sort finds
+    the first copies (no loop over the ns * nl copies)."""
+    ns, nl = l2g.shape
+    flat = l2g.reshape(-1)
+    cand = np.flatnonzero((flat >= 0) & wanted[np.maximum(flat, 0)])
+    order = np.argsort(flat[cand], kind="stable")
+    g_sorted = flat[cand][order]
+    first = np.concatenate([[True], g_sorted[1:] != g_sorted[:-1]]) if len(cand) else \
+        np.zeros(0, dtype=bool)
+    cols = np.sort(cand[order[first]])
+    mI = len(cols)
+    BI = SubdomainExtension.from_coo(np.arange(mI), cols, np.full(mI, float(value)),
+                                     m=mI, ns=ns, nl=nl)
+    return BI, flat[cols]
+
+
+def build_obstacle(cells=(24, 24, 24), grid=(2, 2, 2), cap=None):
+    """Contact variant of :func:`build_sparse` (examples/feti_large.py:
+    322-356): a ceiling u <= cap on the far face (x = Lx) of the Poisson
+    box — the membrane pressed against a plane, creating an active contact
+    set where the unconstrained solution would exceed the cap.  One
+    inequality row per far-face node on its first owning copy.
+
+    Returns (prob, BI, cI, cap)."""
+    prob = build_sparse(cells, grid)
+    Mx = cells[0] + 1
+    if cap is None:
+        # the free solution of -u'' = 1, u(0) = 0 grows like x^2/2: cap at
+        # a fraction of the far-face scale so contact actually activates
+        cap = 0.3 * (Mx - 1) ** 2 / 2.0
+    BI, _ = _first_owner_rows(prob.l2g, np.arange(prob.n_global) % Mx == Mx - 1, 1.0)
+    return prob, BI, np.full(BI.shape[0], cap), cap
+
+
+def build_contact(ns: int = 4, ne: int = 25):
+    """The decomposed 1-D obstacle problem of tutorial ex1 (examples/
+    feti_contact.py:31-78): -u'' = -30, u(0) = u(1) = 0 as a Dirichlet set
+    (enforced by rows of BE or in the Hessian), u >= sin(4 pi x - pi/6)/2 - 2
+    as inequality rows -u_g <= -lb_g on the first owning copy of each
+    interior node; ``ns`` floating subdomains of ``ne`` elements.
+
+    Returns (prob, BI, cI, lb) with ``prob`` a SparseFetiProblem."""
+    nl = ne + 1
+    n = ns * ne + 1
+    h = 1.0 / (n - 1)
+    K = _free_tridiag(nl, 2.0, -1.0)
+    # element loads -15 h^2 to each end, assembling to the serial ex1 rhs
+    # b_i = -30 h^2 at interior nodes; the Dirichlet nodes carry no load
+    load = -15.0 * h * h
+    b = np.full((ns, nl), load + load)
+    b[:, 0] = b[:, -1] = load
+    b[0, 0] = b[-1, -1] = 0.0
+    l2g = np.arange(ns)[:, None] * ne + np.arange(nl)[None, :]
+    prob = SparseFetiProblem(
+        K_blocks=[K.copy() for _ in range(ns)], b_loc=decompose_rhs_by_multiplicity(b, l2g),
+        l2g=l2g.astype(np.int64), floating=np.ones(ns, dtype=bool),
+        dirichlet=np.array([0, n - 1]))
+    lb = np.sin(4 * np.pi * np.arange(n) * h - np.pi / 6.0) / 2 - 2
+    interior = np.ones(n, dtype=bool)
+    interior[[0, n - 1]] = False
+    BI, g = _first_owner_rows(l2g, interior, -1.0)
+    return prob, BI, -lb[g], lb
 
 
 def assembled_system(cells):

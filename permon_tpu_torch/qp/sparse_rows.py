@@ -9,12 +9,13 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..core.extension import SubdomainExtension
-from ..core.linop import Ell
+from ..core.linop import Ell, VStack
 
 
 def to_coo(op) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, int]]]:
-    """Host (rows, cols, vals, shape) of a sparse row operator; None for a
-    Dense operator (no sparse row structure)."""
+    """Host (rows, cols, vals, shape) of a sparse row operator
+    (SubdomainExtension, Ell, VStack of those); None for a Dense operator
+    (no sparse row structure)."""
     if isinstance(op, SubdomainExtension):
         rows = op.rows.reshape(-1)
         sub = np.repeat(np.arange(op.ns), op.rows.shape[1])
@@ -29,6 +30,17 @@ def to_coo(op) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, 
         rows = np.broadcast_to(np.arange(m)[:, None], cols.shape)
         keep = vals != 0
         return rows[keep], cols[keep], vals[keep], (m, n)
+    if isinstance(op, VStack):
+        parts = [to_coo(b) for b in op.ops]
+        if any(p is None for p in parts):
+            return None
+        n = parts[0][3][1]
+        if any(p[3][1] != n for p in parts):
+            raise ValueError("VStack blocks differ in their column count")
+        offs = np.cumsum([0] + [p[3][0] for p in parts])
+        return (np.concatenate([p[0] + o for p, o in zip(parts, offs)]),
+                np.concatenate([p[1] for p in parts]),
+                np.concatenate([p[2] for p in parts]), (int(offs[-1]), n))
     return None  # Dense and matrix-free operators have no sparse rows
 
 

@@ -1,6 +1,7 @@
 """QP transforms — the part of :mod:`permon_tpu.qp.transforms` the
-large-path linear TFETI solve uses: ``dualize`` -> ``homogenize_eq`` ->
-``enforce_eq_by_projector``, folded back by ``compose``.
+large-path TFETI solves (linear and contact) use: ``dualize`` ->
+``homogenize_eq`` -> ``enforce_eq_by_projector``, folded back by
+``compose``.
 
 Each transform maps a QP to ``(child_qp, post_solve)`` where
 ``post_solve`` takes the child's :class:`Solution` and returns the
@@ -15,8 +16,9 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from .. import Struct, not_ported
-from ..core.linop import Dense, DenseTree, Product, Transpose
+from ..core.linop import Dense, DenseTree, Product, Transpose, VStack
 from .projector import ProjOp, Projector
+from ..qpc.box import BoxConstraint
 from .qp import QP
 
 #: k*(N+m) element count past which dualize(coarse='auto') builds the
@@ -82,21 +84,33 @@ def _sparse_coarse(R, B):
 
 def dualize(qp: QP, kplus=None, kplus_mode: str = "plain", pf=None,
             coarse: str = "auto") -> Tuple[QP, PostSolve]:
-    """The dual QP  min 1/2 l'Fl - d'l  s.t. G l = e  with F = B K+ B',
-    d = B K+ b - c, G = R'B', e = R'b  (QPTDualize, qptransform.c:909-1197).
-    Only the equality-constrained case with a supplied ``kplus`` and
-    ``kplus_mode='plain'`` is ported.  ``pf`` reuses a factorized coarse
-    projector (the QPReusedCP path)."""
-    if qp.BE is None:
-        raise ValueError("dualize needs equality constraints BE")
+    """The dual QP  min 1/2 l'Fl - d'l  s.t. G l = e, l_I >= 0  with
+    F = B K+ B', d = B K+ b - c, G = R'B', e = R'b, B = [BE; BI] and
+    c = [cE; cI]  (QPTDualize, qptransform.c:909-1197).  Only a supplied
+    ``kplus`` with ``kplus_mode='plain'`` is ported.  ``pf`` reuses a
+    factorized coarse projector (the QPReusedCP path)."""
+    if qp.BE is None and qp.BI is None:
+        raise ValueError("dualize needs linear constraints (BE or BI)")
     if kplus is None:
         raise not_ported("dualize without a supplied K+ (make_inv)")
     if kplus_mode != "plain":
         raise not_ported(f"kplus_mode={kplus_mode!r}")
     A, b = qp.A, qp.b
-    B = qp.BE
+
+    def rhs(c, rows):
+        return c if c is not None else torch.zeros(rows, dtype=b.dtype, device=b.device)
+
+    ops, cs, mE = [], [], 0
+    if qp.BE is not None:
+        mE = qp.BE.shape[0]
+        ops.append(qp.BE)
+        cs.append(rhs(qp.cE, mE))
+    if qp.BI is not None:
+        ops.append(qp.BI)
+        cs.append(rhs(qp.cI, qp.BI.shape[0]))
+    B = ops[0] if len(ops) == 1 else VStack(tuple(ops))
+    c = torch.cat(cs)
     m = B.shape[0]
-    c = qp.cE if qp.cE is not None else torch.zeros(m, dtype=b.dtype, device=b.device)
     Kplus = kplus
     F = Product((B, Kplus, Transpose(B)))
     d = B.mv(Kplus.mv(b)) - c
@@ -119,7 +133,14 @@ def dualize(qp: QP, kplus=None, kplus_mode: str = "plain", pf=None,
             G = Dense.create(torch.stack([B.mv(Rt[i]) for i in range(k_null)]))
         e = qp.R.rmv(b)
 
-    child = QP(A=F, b=d, x0=torch.zeros(m, dtype=b.dtype, device=b.device),
+    box = None
+    if qp.BI is not None:
+        # lb = -inf on the E block, 0 on the I block (qptransform.c:1136-1162)
+        lb = torch.cat([torch.full((mE,), -torch.inf, dtype=b.dtype, device=b.device),
+                        torch.zeros(m - mE, dtype=b.dtype, device=b.device)])
+        box = BoxConstraint.create(m, lb=lb, device=b.device)
+
+    child = QP(A=F, b=d, x0=torch.zeros(m, dtype=b.dtype, device=b.device), box=box,
                BE=G, cE=e, R=None)
     if pf is not None:
         child = child.replace(pf=pf)
@@ -140,19 +161,25 @@ def dualize(qp: QP, kplus=None, kplus_mode: str = "plain", pf=None,
                       else torch.zeros(m, dtype=b.dtype, device=b.device))
             alpha = child.pf.apply_half_q(bt)
             u = u - qp.R.mv(alpha)
-        return Solution(x=u, lambda_E=lam, Bt_lambda=B.rmv(lam))
+        return Solution(x=u, lambda_E=lam[:mE] if qp.BE is not None else None,
+                        lambda_I=lam[mE:] if qp.BI is not None else None,
+                        Bt_lambda=B.rmv(lam))
 
     return child, post
 
 
 def homogenize_eq(qp: QP) -> Tuple[QP, PostSolve]:
     """Shift out a nonzero equality rhs: xt = BE'(BE BE')^{-1} cE; the
-    child has cE = 0 and b = b - A xt (QPTHomogenizeEq)."""
+    child has cE = 0, b = b - A xt, shifted cI and box (QPTHomogenizeEq)."""
     if qp.cE is None:
         return qp, lambda s: s
     qp = ensure_pf(qp)
     xt = qp.pf.apply_half_q_t(qp.cE)
-    child = qp.replace(b=qp.b - qp.A.mv(xt), cE=None, x0=None)
+    cI = qp.cI - qp.BI.mv(xt) if qp.cI is not None and qp.BI is not None else qp.cI
+    box = qp.box
+    if box is not None:
+        box = box.replace(lb=box.lb - xt, ub=box.ub - xt)
+    child = qp.replace(b=qp.b - qp.A.mv(xt), cE=None, cI=cI, box=box, x0=None)
 
     def post(sol: Solution) -> Solution:
         return sol.replace(x=sol.x + xt, g=None)
@@ -161,8 +188,9 @@ def homogenize_eq(qp: QP) -> Tuple[QP, PostSolve]:
 
 
 def enforce_eq_by_projector(qp: QP) -> Tuple[QP, PostSolve]:
-    """Replace A by P A and b by P b with P the orthogonal projector onto
-    ker BE (QPTEnforceEqByProjector, equality-only form).  Requires
+    """Replace A by P A (equality-only) or P A P (a box or inequalities
+    remain: BE and pf are kept for the solver) and b by P b, with P the
+    orthogonal projector onto ker BE (QPTEnforceEqByProjector).  Requires
     homogenized equality constraints."""
     if qp.BE is None:
         return qp.replace(cE=None), lambda s: s
@@ -170,7 +198,10 @@ def enforce_eq_by_projector(qp: QP) -> Tuple[QP, PostSolve]:
         raise ValueError("apply homogenize_eq before enforce_eq_by_projector")
     qp = ensure_pf(qp)
     P = ProjOp(pf=qp.pf)
-    child = qp.replace(A=Product((P, qp.A)), b=P.mv(qp.b), BE=None, cE=None, pf=None)
+    if qp.BI is None and qp.box is None:
+        child = qp.replace(A=Product((P, qp.A)), b=P.mv(qp.b), BE=None, cE=None, pf=None)
+    else:
+        child = qp.replace(A=Product((P, qp.A, P)), b=P.mv(qp.b))
 
     def post(sol: Solution) -> Solution:
         # lambda_E fixup: Bt_lambda += Q (b - A x), lambda_E += halfQ(b - A x)

@@ -1,6 +1,7 @@
-"""Conjugate gradients and projected CG (PCPG) — the port of
-:func:`permon_tpu.solvers.cg.cg` (reference: src/qps/impls/ksp/qpsksp.c,
-src/qps/impls/pcpg/pcpg.c).
+"""Conjugate gradients and projected preconditioned CG (PCPG) — the port
+of :func:`permon_tpu.solvers.cg.cg` (reference: src/qps/impls/ksp/qpsksp.c,
+src/qps/impls/pcpg/pcpg.c: w = P r, z = M w, y = P z, the CG recurrence on
+the projected quantities).
 
 The JAX ``lax.while_loop`` becomes a Python loop with ONE host read per
 iteration: the residual norm and the breakdown flag of the previous step
@@ -14,7 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .. import Struct, not_ported
+from .. import Struct
 from ..core import detred
 from ..core.convergence import ConvergedReason, Tolerances, converged_default
 from ..qp.qp import QP
@@ -33,14 +34,13 @@ class CGResult(Struct):
 
 def cg(qp: QP, tol: Tolerances = Tolerances(), precond: Optional[Callable] = None,
        project: Optional[Callable] = None, history: int = 0) -> CGResult:
-    """(Projected) CG on 1/2 x'Ax - b'x.  With ``project`` = P this is
-    PCPG with reprojection every iteration (pcpg.c:51-134); convergence
-    is tested on ||P r||.  ``history`` > 0 records that many residual
-    norms."""
+    """(Projected, preconditioned) CG on 1/2 x'Ax - b'x.  With ``project``
+    = P this is PCPG with reprojection every iteration (pcpg.c:51-134);
+    convergence is tested on ||P r||.  ``precond`` = M gives z = M w and,
+    being applied, a second projection y = P z.  ``history`` > 0 records
+    that many residual norms."""
     from ..core.precision import dot_bundler, reducers
 
-    if precond is not None:
-        raise not_ported("cg with a preconditioner (pc_dual='lumped')")
     A, b = qp.A, qp.b
     vdot, vnorm = reducers(qp.dots_dtype)
     vdots = dot_bundler(qp.dots_dtype)
@@ -52,15 +52,19 @@ def cg(qp: QP, tol: Tolerances = Tolerances(), precond: Optional[Callable] = Non
     P = project if project is not None else (lambda v: v)
     nh = int(history)
 
+    def precondition(w):
+        return P(precond(w)) if precond is not None else w
+
     r = b - A.mv(x)
     w = P(r)
-    p = w
+    y = precondition(w)
+    p = y
     rdtype = getattr(torch, qp.dots_dtype) if qp.dots_dtype else b.dtype
     hist = torch.full((max(nh, 1),), float("nan"), dtype=rdtype, device=b.device)
     if fuse:
-        wz, rn2 = vdots([(w, w), (w, w)])
+        wz, rn2 = vdots([(w, y), (w, w)])
     else:
-        wz, rn2 = vdot(w, w), None
+        wz, rn2 = vdot(w, y), None
     broke = torch.zeros((), dtype=torch.bool, device=b.device)
     it, nmv, reason = 0, 1, 0
     while True:
@@ -89,12 +93,13 @@ def cg(qp: QP, tol: Tolerances = Tolerances(), precond: Optional[Callable] = Non
         x = x + a * p
         r = r - a * Ap
         w = P(r)
+        y = precondition(w)
         if fuse:
-            wz2, rn2 = vdots([(w, w), (w, w)])
+            wz2, rn2 = vdots([(w, y), (w, w)])
         else:
-            wz2 = vdot(w, w)
+            wz2 = vdot(w, y)
         beta = torch.where(broke, torch.zeros_like(wz2), wz2 / wz).to(x.dtype)
-        p = w + beta * p
+        p = y + beta * p
         wz = wz2
         it += 1
         nmv += 1

@@ -5,7 +5,7 @@ Mirrors QPSSetDefaultType (reference: src/qps/interface/qps.c:422-455):
 
 - inequality constraints present  -> unsupported here directly (dualize first,
   exactly like the reference which errors with "use QPDualize"),
-- equality constraints present    -> SMALXE (not ported yet),
+- equality constraints present    -> SMALXE,
 - box constraints only            -> MPRGP,
 - unconstrained                   -> CG (the KSP analog).
 """
@@ -57,6 +57,19 @@ def solve(qp: QP, qps_type: Optional[str] = None, tol: Tolerances = Tolerances()
         return mprgp(qp, opts=opts, tol=tol)
     if qps_type in ("cg", "ksp"):
         return cg(qp, tol=tol, **kwargs)
-    if qps_type in ("smalxe", "tao", "pcpg"):
+    if qps_type == "smalxe":
+        from ..qp.transforms import Solution, homogenize_eq
+        from .smalxe import SMALXEOptions, smalxe
+
+        opts = kwargs.pop("opts", None) or SMALXEOptions(**kwargs)
+        # nonzero cE is homogenized away automatically, as in QPSSetUp_SMALXE
+        # (smalxe.c:771-779); the shift is applied back to the returned x
+        if qp.cE is not None:
+            child, post = homogenize_eq(qp)
+            res = smalxe(child, opts=opts, tol=tol)
+            sol = post(Solution(x=res.x, Bt_lambda=res.Bt_lambda))
+            return res.replace(x=sol.x)
+        return smalxe(qp, opts=opts, tol=tol)
+    if qps_type in ("tao", "pcpg"):
         raise not_ported(f"solver type {qps_type!r}")
     raise ValueError(f"unknown solver type {qps_type!r}")

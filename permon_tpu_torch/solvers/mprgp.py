@@ -138,7 +138,13 @@ def mprgp(
     ``conv_test(aux, it, rnorm, x, g) -> (reason, aux)`` may replace the
     default test (``it`` a Python int, ``rnorm`` a Python float, ``reason``
     an int) — SMALXE injects its coupled inner/outer test this way
-    (reference: QPSConverged_Inner_SMALXE, smalxe.c:609-692).
+    (reference: QPSConverged_Inner_SMALXE, smalxe.c:609-692).  A test that
+    needs device values of its own has a method ``device_scalars(aux,
+    rnorm_t, x, g) -> (aux, tuple of 0-dim tensors)``: those scalars come
+    back in the first host read of the iteration, beside ||gP||, and the
+    test is called as ``conv_test(aux, it, rnorm, x, g, floats)`` — no
+    further synchronisation.  The loop knows this one protocol: a test
+    without the method is wrapped once, with no scalars of its own.
     ``history`` > 0 records that many per-iteration ||gP|| values in a
     fixed-size device buffer surfaced as ``result.rnorm_history``.
     """
@@ -160,8 +166,11 @@ def mprgp(
     gamma2 = opts.gamma**2
 
     def scalar(v):
-        """A 0-dim tensor of the vector dtype from a float or tensor."""
-        return torch.as_tensor(v, device=dev).to(dtype)
+        """A 0-dim tensor of the vector dtype from a float or tensor (a
+        float is rounded once, to ``dtype``, not through float32)."""
+        if isinstance(v, torch.Tensor):
+            return v.to(device=dev, dtype=dtype)
+        return torch.tensor(v, dtype=dtype, device=dev)
 
     # --- alpha initialization (QPSSetup_MPGP, mpgp.c:404-414) ---------------
     alpha_user = 2.0 if opts.alpha_user is None else opts.alpha_user
@@ -341,6 +350,18 @@ def mprgp(
     gf0, gc0, gr0 = _grads_all(box, x0, g0, alpha_init)
     st = _State(x=x0, g=g0, p=gf0, gf=gf0, gc=gc0, gr=gr0, alpha=alpha_init)
     it, aux = 0, conv_aux
+    test_scalars = getattr(conv_test, "device_scalars", None)
+    if test_scalars is None:
+        # a test that needs no device value beyond ||gP|| is wrapped once, so
+        # the loop knows one protocol
+        plain_test = conv_test
+
+        def test_scalars(aux, rnorm_t, x, g):
+            return aux, ()
+
+        def conv_test(aux, it, rnorm, x, g, extra):
+            return plain_test(aux, it, rnorm, x, g)
+
     while True:
         gP = st.gf + st.gc
         if fuse_body:
@@ -356,12 +377,13 @@ def mprgp(
         proportional_t = gcTgc <= gamma2 * gfTgf
         # the first host read of the iteration: ||gP|| and the
         # proportionality decision together
-        rnorm, proportional = torch.stack([rnorm_t.to(torch.float64),
-                                           proportional_t.to(torch.float64)]).tolist()
+        aux, extra = test_scalars(aux, rnorm_t, st.x, st.g)
+        rnorm, proportional, *extra = torch.stack(
+            [v.to(torch.float64) for v in (rnorm_t, proportional_t, *extra)]).tolist()
         if nh:
             hist[min(it, nh - 1)] = rnorm_t
         monitor(st, it, rnorm)
-        reason, aux = conv_test(aux, it, rnorm, st.x, st.g)
+        reason, aux = conv_test(aux, it, rnorm, st.x, st.g, extra)
         if reason != 0:
             break
         st = proportional_branch(st) if proportional else proportioning_branch(st)

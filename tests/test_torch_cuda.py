@@ -17,7 +17,8 @@ from permon_tpu_torch.core.sell import (SEll, gather_apply, gather_apply_plain,
 from permon_tpu_torch.feti.assembly import build_gluing
 from permon_tpu_torch.feti.large import FetiSolverSparse, feti_solve_sparse
 from permon_tpu_torch.feti.solve import FetiOptions
-from permon_tpu_torch.problems import build_jbearing, build_sparse, rcm_permuted
+from permon_tpu_torch.problems import (build_contact, build_jbearing, build_obstacle,
+                                       build_sparse, rcm_permuted)
 
 pytestmark = pytest.mark.cuda
 
@@ -136,6 +137,81 @@ def test_fast_path_reuse_on_card(cuda_device):
     r2 = solver.solve(b_loc=prob.b_loc * 1.5, tol=Tolerances(rtol=1e-6))
     assert r1.result.reason == 2 and r2.result.reason == 2
     np.testing.assert_allclose(r2.x_global, 1.5 * r1.x_global, atol=1e-6)
+
+
+@pytest.mark.parametrize("project", [True, False])
+def test_contact_kernel_solve_equals_plain_solve(cuda_device, project):
+    """Contact through the gather kernel (BE and BI tables) and through the
+    plain version: equal counts, bitwise equal x_global; projected (one
+    outer iteration) and unprojected SMALBE."""
+    from permon_tpu_torch.solvers.smalxe import SMALXEOptions
+
+    prob, BI, cI, cap = build_obstacle((10,) * 3, (2,) * 3)
+    kw = {} if project else dict(project=False, smalxe=SMALXEOptions(rtol_E=0.1))
+    runs = []
+    for gk in (None, False):
+        gather_apply.launches = 0
+        res = feti_solve_sparse(prob, FetiOptions(gluing="nonred", deterministic=True,
+                                                  gather_kernel=gk, **kw),
+                                BI=BI, cI=cI, tol=Tolerances(rtol=1e-7), device=cuda_device)
+        runs.append((res, gather_apply.launches))
+    (rk, nk), (rp, np_) = runs
+    assert nk > 0 and np_ == 0
+    # every F apply launches the kernel four times: B' and B of BE and of BI
+    assert nk >= 4 * rk.result.nmv
+    assert rk.result.reason == 2 and (rk.result.iterations == 1) == project
+    for f in ("iterations", "inner_iterations", "nmv", "M1_updates", "rho_updates"):
+        assert getattr(rk.result, f) == getattr(rp.result, f)
+    np.testing.assert_array_equal(rk.x_global, rp.x_global)
+    far = np.arange(prob.n_global) % 11 == 10
+    assert (rk.x_global[far] <= cap + 5e-4).all() and (rk.x_global[far] >= cap - 5e-4).any()
+
+
+def test_contact_with_dirichlet_rows_on_card_equals_cpu(cuda_device):
+    """Dirichlet rows with values (a nonzero cE) and contact rows: the card
+    and the CPU run of the port agree in counts and solution at f64."""
+    prob, BI, cI, lb = build_contact(4, 25)
+    prob.dirichlet_values = np.array([-0.2, 0.1])
+    runs = [feti_solve_sparse(prob, FetiOptions(gluing="nonred", deterministic=True), BI=BI,
+                              cI=cI, tol=Tolerances(rtol=1e-6), device=dev)
+            for dev in (cuda_device, "cpu")]
+    assert runs[0].result.reason == 2
+    assert runs[0].result.iterations == runs[1].result.iterations
+    assert abs(runs[0].result.inner_iterations - runs[1].result.inner_iterations) <= 2
+    np.testing.assert_allclose(runs[0].x_global, runs[1].x_global, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_box", [True, False])
+def test_smalxe_counts_on_card_equal_cpu(cuda_device, with_box):
+    """SMALXE at f64 on the card and on the CPU: the same outer / inner /
+    product / update counts (the decisions are made on the host from values
+    read back exactly; the operands differ by the GEMV's rounding only)."""
+    import permon_tpu_torch as pt
+
+    rng = np.random.default_rng(0)
+    n = 30
+    A = 2.5 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)
+    b = rng.normal(size=n)
+    BE = np.ones((2, n))
+    BE[1, n // 2:] = -1.0
+    lb = np.full(n, -0.3) if with_box else None
+    runs = [pt.smalxe(pt.QP.create(A, b, BE=BE, lb=lb, device=dev),
+                      tol=Tolerances(rtol=1e-7)) for dev in (cuda_device, "cpu")]
+    for f in ("iterations", "inner_iterations", "nmv", "M1_updates", "rho_updates", "reason"):
+        assert getattr(runs[0], f) == getattr(runs[1], f), f
+    assert runs[0].reason == 2 and runs[0].x.device.type == "cuda"
+    np.testing.assert_allclose(runs[0].x.cpu().numpy(), runs[1].x.numpy(), rtol=0, atol=1e-10)
+
+
+def test_lumped_fast_path_on_card(cuda_device):
+    prob = build_sparse((12,) * 3, (2,) * 3)
+    solver = FetiSolverSparse(prob, FetiOptions(gluing="nonred", pc_dual="lumped",
+                                                coarse="sparse", deterministic=True),
+                              device=cuda_device)
+    r1 = solver.solve(tol=Tolerances(rtol=1e-6))
+    r2 = solver.solve(b_loc=prob.b_loc * 2.0, tol=Tolerances(rtol=1e-6))
+    assert r1.result.reason == 2 and r1.result.iterations == r2.result.iterations
+    np.testing.assert_allclose(r2.x_global, 2.0 * r1.x_global, atol=1e-6)
 
 
 # ------------------------------------------------------------------- sell_mv

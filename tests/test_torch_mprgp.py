@@ -329,8 +329,10 @@ def test_unbounded_qp_runs_as_cg_and_solver_selection_rules():
     assert default_solver_type(boxed.replace(BE=qp.A)) == "smalxe"
     with pytest.raises(ValueError, match="dualize"):
         default_solver_type(boxed.replace(BI=qp.A))
-    for name in ("smalxe", "tao", "pcpg"):
+    for name in ("tao", "pcpg"):
         with pytest.raises(NotImplementedError, match="not ported"):
             tpt.solve(boxed, qps_type=name)
+    with pytest.raises(ValueError, match="equality"):  # SMALXE is ported and needs BE
+        tpt.solve(boxed, qps_type="smalxe")
     with pytest.raises(ValueError, match="unknown solver"):
         tpt.solve(boxed, qps_type="nope")
