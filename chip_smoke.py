@@ -18,7 +18,15 @@ Drives the port's main paths and checks them:
   SMALXE around MPRGP on the box-constrained dual) on the 80^3 =
   512,000-dof Poisson box with a ceiling on its far face (6,400 contact
   rows, 64 subdomains; the shape of scripts/northstar_contact.py), with
-  the gather kernel applying the tables of BE and of BI.
+  the gather kernel applying the tables of BE and of BI;
+- 3-D elasticity on the large path, linear and with contact (the north-star
+  problem class): the 1,179,750-dof Q1 elasticity box of
+  scripts/northstar_elasticity.py (108 subdomains of 10 x 10 x 44 nodes,
+  3 dofs per node, 6 rigid body modes per floating subdomain, 7,150
+  contact rows), whose coarse G = R'B' (540 x 253,000) is past the dense
+  cutoff and runs as a BlockCoarse;
+- a 3-D Poisson box cut into 2,744 subdomains (1,404,928 dofs), whose
+  2,548 coarse rows switch the band factorization of GG' on by default.
 
 Phases:
 
@@ -26,8 +34,10 @@ Phases:
 2. builds both CUDA kernels from permon_tpu_torch/csrc (one nvcc each,
    started together) and prints the ptxas register/spill lines;
 3. gather kernel phase: the north-star gather tables (B, B' with its
-   overflow, the reassembly table of the warm solve) and the contact rows'
-   tables of phase 8 (BI, BI') through the kernel
+   overflow, the reassembly table of the warm solve), the contact rows'
+   tables of phase 8 (BI, BI') and the elasticity tables of phase 9 (3 dofs
+   per node: B, B' with its overflow, the reassembly table, BI, BI')
+   through the kernel
    against the plain PyTorch version and against the kernel it replaced,
    bitwise (torch.equal), in all four (vals, x) dtype pairs, one launch per
    apply; then, in f64 and f32, one launch's time with a cold L2 (CUDA
@@ -66,7 +76,23 @@ Phases:
    SMALBE proper (project=False, rtol_E 0.1): reason 2, more than one
    outer iteration, M1 updated, the solution within its limit of (a)'s;
    (c) the lumped dual preconditioner on the 21^3 twin: reason 2, first
-   (eager) and warm (fast path) solve with equal counts, residual <= 1e-8.
+   (eager) and warm (fast path) solve with equal counts, residual <= 1e-8;
+9. elasticity at 1,179,750 dofs, f32 factors + 2 refinement steps, rtol
+   1e-5, Dirichlet face eliminated in the Hessian, G a BlockCoarse:
+   (a) linear with one primal defect pass: first solve and two re-solves
+   with scaled loads, reason 2, the assembled residual on the free dofs
+   from the decomposed blocks (scipy f64) <= 2e-4 (<= 1e-5 with a second
+   defect pass), the clamped face exactly 0, where the time of a warm
+   re-solve goes (device against host per part); (b) projected contact: first and warm solve, reason 2, the far
+   face's u_x under the gap to 2e-5 of it, the natural KKT residual of the
+   box QP from the decomposed blocks, the far-face multipliers' sign, and
+   the same solve through the plain gather version with equal counts and a
+   bitwise equal x_global;
+10. the band GG': the Poisson box in 2,744 subdomains with coarse='auto':
+   the projector holds a band factor and a BlockCoarse with one column per
+   subdomain, reason 2, assembled residual <= 1e-6, the coarse solve timed
+   (device against host); and reorder_rcm on the twin: the same solution,
+   the count within 1.
 
 Every phase raises on failure (exit code != 0).  The line before the last
 is the kernel JSON record (``ms``: one launch between two events with a
@@ -75,7 +101,13 @@ north star; ``v1_ms``: the replaced kernel the same way, in turns;
 ``call_ms``: the wrapper's back-to-back call period; ``kernel_only_ms``: the
 kernel's device time by the profiler; ``floor_ms``: what ``ms`` reads for a
 32-thread launch), the last line {"ok": true,
-"device": ...}.  ``--kernels-only`` stops after phase 4.
+"device": ...}.  Development options, none of which prints the result lines:
+``--kernels-only`` stops after phase 4; ``--only=9,10`` runs phases 1, 2
+and the named ones of 9, 9c, 9t, 10.  9c is SMALBE proper (project=False,
+rtol_E 0.1) on elastic contact at 361,416 dofs against its projected twin;
+it is no part of the default run: on an H100 its 14th inner solve ran into
+MPRGP's 10,000-iteration cap (PERF.md).  9t sweeps the dual tolerance and
+the factor precision of phase 9b's contact solve.
 Imports nothing of JAX or of the JAX package permon_tpu.
 """
 
@@ -88,6 +120,9 @@ import time
 NORTH_STAR = ((100,) * 3, (4,) * 3)
 TWIN = ((20,) * 3, (4,) * 3)
 CONTACT = ((79,) * 3, (4,) * 3)  # 80^3 = 512,000 dofs, 6,400 contact rows
+ELASTICITY = ((54, 54, 129), (6, 6, 3))  # 1,179,750 dofs, 108 subdomains, 7,150 contact rows
+SMALBE_ELASTICITY = ((36, 36, 87), (4, 4, 2))  # 361,416 dofs, 32 subdomains of the same boxes
+BAND_COARSE = ((111,) * 3, (14,) * 3)  # 112^3 = 1,404,928 dofs, 2,744 subdomains
 JBEARING = (512, 512)  # the QP main path: 262,144 unknowns
 SPMV_JBEARING = (1024, 1024)  # SpMV matrix (a): 1,048,576 rows
 LAPLACIAN_NX = 128  # SpMV matrix (b): 2,097,152 rows
@@ -189,6 +224,58 @@ def kernel_only_ms(fn, flush, reps=10):
     return total / 1e3 / reps if total > 0 else None
 
 
+def device_ms(fn, reps=10):
+    """Milliseconds that one fn() keeps the device busy, by the profiler's
+    kernel records (every kernel it launches); None if the profiler reports
+    no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / reps if total > 0 else None
+
+
+def breakdown(tag, parts):
+    """Log, per named part, the back-to-back call period (CUDA events; the
+    larger of what the host needs to enqueue one call and what the device
+    needs to run it) beside the device's busy time alone."""
+    for name, fn in parts.items():
+        period = cuda_ms(fn, reps=5, warmup=1)
+        log(f"[{tag}] breakdown {name}: period {period:.3f} ms, device busy "
+            f"{fmt_ms(device_ms(fn))}")
+
+
+def profile_solve(tag, run, wall_s):
+    """Profile one run() (a warm re-solve): the device's busy time against
+    the unprofiled wall time, the idle share and the eight largest kernels.
+    Returns run()'s result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if dev_ms <= 0:
+        log(f"[{tag}] profile: no device time reported; idle share not measured")
+        return out
+    log(f"[{tag}] profile of a warm re-solve: device time {dev_ms:.1f} ms against "
+        f"{1e3 * wall_s:.1f} ms wall (unprofiled): device idle share "
+        f"{1 - dev_ms / (1e3 * wall_s):.3f}; {sum(e.count for e in events)} kernel launches")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[{tag}] profile   {e.self_device_time_total / 1e3:.2f} ms x{e.count}  {e.key[:90]}")
+    return out
+
+
 def host_us(fn, n=5000):
     """Microseconds of host time per fn() call (device work drained after)."""
     import torch
@@ -213,10 +300,11 @@ def run_all(fns):
         fn()
 
 
-def phase_kernel(prob, dev):
+def phase_kernel(prob, eprob, eBI, dev):
     """The gather kernel on the exact north-star tables (B, B' with its
-    overflow, the reassembly table of the warm solve) and on the contact
-    rows' tables of phase 8 (BI, BI'): against the plain
+    overflow, the reassembly table of the warm solve), on the contact
+    rows' tables of phase 8 (BI, BI') and on the elasticity tables of phase
+    9 (3 dofs per node; ``eprob``, ``eBI``): against the plain
     PyTorch version and the replaced kernel bitwise in all four dtype
     pairs, then timed per launch with a cold L2, old against new in turns."""
     import numpy as np
@@ -237,12 +325,25 @@ def phase_kernel(prob, dev):
     _, _, cnlp = band_layout([sp.csr_matrix(K) for K in cprob.K_blocks], cprob.nl)
     BI = BI.replace(nl=cnlp).with_gather_apply(dev)
     del cprob
+    # the elasticity tables of phase 9: the clamped face is eliminated in the
+    # Hessian there, so BE is the gluing alone
+    _, _, enlp = band_layout(eprob.K_blocks, eprob.nl)
+    eBE = gluing_extension(padded(eprob, enlp).l2g, FetiOptions(gluing="nonred"), dev)
+    ecopies = ReassemblyTables.build(eprob.l2g, enlp, dev).copies
+    eBI = eBI.replace(nl=enlp).with_gather_apply(dev)
     rng = np.random.RandomState(0)
     tables = {"B": (BE.gB, rng.standard_normal(BE.shape[1])),
               "B'": (BE.gBt, rng.standard_normal(BE.shape[0])),
               "copies": (copies, rng.standard_normal(copies.n_src)),
               "BI": (BI.gB, rng.standard_normal(BI.shape[1])),
-              "BI'": (BI.gBt, rng.standard_normal(BI.shape[0]))}
+              "BI'": (BI.gBt, rng.standard_normal(BI.shape[0])),
+              "elasticity B": (eBE.gB, rng.standard_normal(eBE.shape[1])),
+              "elasticity B'": (eBE.gBt, rng.standard_normal(eBE.shape[0])),
+              "elasticity copies": (ecopies, rng.standard_normal(ecopies.n_src)),
+              "elasticity BI": (eBI.gB, rng.standard_normal(eBI.shape[1])),
+              "elasticity BI'": (eBI.gBt, rng.standard_normal(eBI.shape[0]))}
+    if eBE.gBt.ov_idx is None or ecopies.ov_idx is None:
+        raise AssertionError("the elasticity B' / reassembly tables have no overflow planes")
     for name, (tab, _) in tables.items():
         log(f"[kernel] table {name}: {tuple(tab.idx.shape)}, plane stride {tab.idx.stride(0)}"
             + ("" if tab.ov_idx is None else f", overflow {tuple(tab.ov_idx.shape)}, marker "
@@ -427,7 +528,6 @@ def phase_contact(dev):
     contact solves that ran on the kernel."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from permon_tpu_torch.core.convergence import Tolerances
     from permon_tpu_torch.core.sell import gather_apply
@@ -513,21 +613,9 @@ def phase_contact(dev):
         raise AssertionError(f"contact 8a: the warm re-solve moved x by {move}")
 
     # where the time of a warm solve goes: a profiled re-solve
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        rp, _ = timed(solver, b_loc=prob.b_loc * 1.001)
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    rp = profile_solve("contact", lambda: solver.solve(tol=tol, b_loc=prob.b_loc * 1.001), t2)
     if smalxe_counts(rp.result) != smalxe_counts(r2.result):
         raise AssertionError("contact 8a: the profiled re-solve changed its counts")
-    if dev_ms <= 0:
-        log("[contact] profile: no device time reported; idle share not measured")
-    else:
-        log(f"[contact] profile of a warm re-solve: device time {dev_ms:.1f} ms against "
-            f"{1e3 * t2:.1f} ms wall (unprofiled): device idle share {1 - dev_ms / (1e3 * t2):.3f}")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"[contact] profile   {e.self_device_time_total / 1e3:.2f} ms x{e.count}  "
-                f"{e.key[:90]}")
     qp, pf = solver.qp, solver._pf
     lam = torch.as_tensor(np.random.RandomState(1).standard_normal(pf.G.shape[1]), device=dev)
     lam_E, lam_I = lam[: qp.BE.shape[0]], lam[qp.BE.shape[0]:]
@@ -621,6 +709,437 @@ def phase_contact(dev):
     if n_c <= 0:
         raise AssertionError("lumped twin: the gather kernel was never launched")
     return launches + n_c
+
+
+def elastic_kkt(prob, face, gap, x):
+    """(natural residual, least multiplier over the largest, clamped-face
+    violation) of the elastic contact box QP min 1/2 x'Ax - b'x, x <= gap
+    on the dofs ``face``, the clamped dofs eliminated, in scipy f64 from the
+    decomposed blocks (no global assembly): ||x - P(x - g)|| / ||b|| over
+    the free dofs with g = A x - b, i.e. g on a free dof, max(g, x - gap) on
+    a bounded one; the multiplier of a bounded dof is -g."""
+    import numpy as np
+
+    from permon_tpu_torch.problems import assembled_gradient_free
+
+    g, free, viol = assembled_gradient_free(prob, x)
+    r = np.where(face, np.maximum(g, x - gap), g)[free]
+    mu = -g[face]
+    mu_rel = float(mu.min() / mu.max()) if mu.max() > 0 else -np.inf
+    return float(np.linalg.norm(r) / np.sqrt(free.sum())), mu_rel, viol
+
+
+def phase_elasticity(bundle, t_build, dev):
+    """3-D elasticity at 1,179,750 dofs through the large path: linear with
+    a defect pass, then projected contact, kernel against plain.  Returns
+    the gather_apply launches of the solves that ran on the kernel."""
+    import numpy as np
+    import torch
+
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.core.sell import gather_apply
+    from permon_tpu_torch.feti.large import BlockCoarse, FetiSolverSparse
+    from permon_tpu_torch.feti.solve import FetiOptions
+    from permon_tpu_torch.problems import assembled_residual_free
+
+    cells, _ = ELASTICITY
+    prob, BI, cI, gap = bundle
+    tol = Tolerances(rtol=1e-5)
+    f32 = dict(kplus_dtype=torch.float32, kplus_refine=2)
+    base = dict(gluing="nonred", nullspace="rbm", deterministic=True, coarse="sparse",
+                dirichlet_by_B=False)
+
+    def timed(solver, **kw):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        r = solver.solve(tol=tol, **kw)
+        torch.cuda.synchronize(dev)
+        return r, time.perf_counter() - t
+
+    def check_coarse(solver):
+        G = solver._pf.G
+        if not isinstance(G, BlockCoarse) or solver._pf.ggt_inv is None:
+            raise AssertionError(f"elasticity: G is a {type(G).__name__}, not a BlockCoarse "
+                                 "with the explicit coarse inverse")
+        return G
+
+    # ---- 9a: linear ---------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    gather_apply.launches = 0  # count this path's launches only
+    t0 = time.perf_counter()
+    solver = FetiSolverSparse(prob, FetiOptions(**base), primal_refine=1, device=dev, **f32)
+    t_ctor = time.perf_counter() - t0
+    r1, t1 = timed(solver)
+    n_first = gather_apply.launches
+    r2, t2 = timed(solver, b_loc=prob.b_loc * 1.001)
+    r3, t3 = timed(solver, b_loc=prob.b_loc * 1.002)
+    launches = gather_apply.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    G = check_coarse(solver)
+    qp = solver.qp
+    log(f"[elasticity] {prob.n_global} dofs, {prob.ns} subdomains of <= {prob.nl} dofs, NB "
+        f"{solver.NB}, {solver.kplus.Dinv.shape[0]} block rows, f32 factors "
+        f"{2 * solver.kplus.Dinv.numel() * 4 / 1e9:.2f} GB, stencil diagonals "
+        f"{len(qp.A.offsets)}, k {qp.R.shape[1]}, gluing rows {qp.BE.shape[0]}, G a BlockCoarse "
+        f"{G.shape} with kf {G.Rb.shape[2]} ({G.shape[0] * G.shape[1] / 2**26:.2f} x 2^26 "
+        "elements as a dense array)")
+    log(f"[elasticity] host setup {t_build + solver.timings['host_setup_s']:.3f} s (problem "
+        f"build {t_build:.3f} s), factorization {solver.timings['factor_s']:.3f} s, constructor "
+        f"{t_ctor:.3f} s, peak device memory {peak / 2**30:.3f} GiB")
+    its = [[r.iterations for r in rr.results] for rr in (r1, r2, r3)]
+    reasons = [r.reason for rr in (r1, r2, r3) for r in rr.results]
+    log(f"[elasticity] 9a linear: first solve {t1:.3f} s (the coarse build included), dual CG "
+        f"iterations {its[0]}; re-solve with 1.001 b {t2:.3f} s {its[1]}; warm re-solve with "
+        f"1.002 b {t3:.3f} s {its[2]}; reasons {reasons}; {1e3 * t3 / sum(its[2]):.3f} ms per "
+        f"dual iteration; gather_apply launches {launches} ({n_first} in the first solve)")
+    resid, viol = assembled_residual_free(prob, r1.x_global)
+    lin = np.abs(r3.x_global - 1.002 * r1.x_global).max() / np.abs(r3.x_global).max()
+    # one defect pass at rtol 1e-5 leaves ||A x - b|| / ||b|| near 1e-4 for a
+    # solution of ~3.6e3 (b = 1): held to 2e-4; a second pass (the same
+    # factors, one more dual solve) is held to 1e-5
+    solver.primal_refine = 2
+    r4, t4 = timed(solver)
+    solver.primal_refine = 1
+    resid2, _ = assembled_residual_free(prob, r4.x_global)
+    reasons += [r.reason for r in r4.results]
+    log(f"[elasticity] 9a on the host (scipy f64, decomposed blocks): assembled residual on "
+        f"the free dofs {resid:.3e} (limit 2e-4), largest |u| on the clamped face {viol:.1e} "
+        f"(limit: exactly 0), linearity |x3 - 1.002 x1| / |x3| {lin:.3e} (limit 1e-5), max |u| "
+        f"{np.abs(r1.x_global).max():.2f}; with a second defect pass "
+        f"({[r.iterations for r in r4.results]} iterations, {t4:.3f} s) {resid2:.3e} (limit 1e-5)")
+    if not all(r == 2 for r in reasons):
+        raise AssertionError(f"elasticity 9a: reasons {reasons}")
+    if r1.dual_qp is not None or n_first <= 0:
+        raise AssertionError("elasticity 9a: the fast path or the gather kernel did not run")
+    if not (np.isfinite(r1.x_global).all() and resid <= 2e-4 and viol == 0.0 and lin <= 1e-5
+            and resid2 <= 1e-5):
+        raise AssertionError(f"elasticity 9a: residual {resid} (two passes {resid2}), clamped "
+                             f"{viol}, linearity {lin}")
+
+    # where the time of a warm re-solve goes
+    profile_solve("elasticity", lambda: solver.solve(b_loc=prob.b_loc * 1.002, tol=tol), t3)
+    pf = solver._pf
+    lam = torch.as_tensor(np.random.RandomState(1).standard_normal(qp.BE.shape[0]), device=dev)
+    v = qp.BE.rmv(lam)
+    w = G.mv(lam)
+    breakdown("elasticity", {
+        "B' (rmv)": lambda: qp.BE.rmv(lam), "B (mv)": lambda: qp.BE.mv(v),
+        "K+ (f32, unrefined, NB 384 x 35 rows)": lambda: solver.kplus.mv(v),
+        "K+ refined (2 steps)": lambda: solver.kplus_post.mv(v),
+        "A (the stencil)": lambda: qp.A.mv(v),
+        "P (coarse projector)": lambda: pf.apply_p(lam),
+        "G (BlockCoarse mv: B' + tree)": lambda: G.mv(lam),
+        "G' (BlockCoarse rmv: kf adds + B)": lambda: G.rmv(w),
+        "coarse solve (explicit inverse as a tree)": lambda: pf.apply_cp(w),
+    })
+    x_lin = r1.x_global
+    del solver, qp, pf, G, r1, r2, r3, r4, lam, v, w
+
+    # ---- 9b: projected contact ------------------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    gather_apply.launches = 0  # count this path's launches only
+    solver = FetiSolverSparse(prob, FetiOptions(**base), BI=BI, cI=cI, device=dev, **f32)
+    c1, tc1 = timed(solver)
+    n_c1 = gather_apply.launches
+    c2, tc2 = timed(solver, b_loc=prob.b_loc * 1.001)
+    n_contact = gather_apply.launches
+    check_coarse(solver)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for tag, r, t, n in (("first solve", c1, tc1, n_c1),
+                         ("warm re-solve with 1.001 b", c2, tc2, n_contact - n_c1)):
+        res = r.result
+        # every F apply launches the kernel four times (B' and B of BE and of
+        # BI); every G or G' apply of the BlockCoarse four more
+        log(f"[elasticity] 9b projected contact, {tag}: reason {res.reason}, outer "
+            f"{res.iterations}, inner {res.inner_iterations}, Hessian products {res.nmv} "
+            f"(cg/exp/prop {res.ncg}/{res.nexp}/{res.nprop}), M1 updates {res.M1_updates}, rho "
+            f"updates {res.rho_updates} (the JAX package's capture of this shape counted 28 "
+            f"outer / 701 inner / 970 products with f32 factor recurrences), {t:.3f} s = "
+            f"{1e3 * t / max(res.nmv, 1):.3f} ms per product with all that rides on it; "
+            f"gather_apply launches {n}")
+        if res.reason != 2:
+            raise AssertionError(f"elasticity 9b {tag}: reason {res.reason}")
+    log(f"[elasticity] 9b: contact rows {solver.qp.BI.shape[0]}, gap {gap:.2f}, peak device "
+        f"memory {peak / 2**30:.3f} GiB")
+    if c1.dual_qp is not None or n_c1 <= 0 or n_contact <= n_c1:
+        raise AssertionError("elasticity 9b: the fast path or the gather kernel did not run")
+    face = far_face_x_dofs(prob.n_global, cells)
+
+    def host_checks(tag, x, limits):
+        """Feasibility and KKT of a contact solution on the host; the limits
+        are (over the gap / gap, KKT / ||b||, least multiplier / largest)."""
+        over = float((x[face] - gap).max())
+        n_active = int((x[face] >= gap - limits[0] * gap).sum())
+        kkt, mu_rel, viol = elastic_kkt(prob, face, gap, x)
+        log(f"[elasticity] {tag} on the host (scipy f64, decomposed blocks): max(u_x - gap) on "
+            f"the far face {over:.3e} = {over / gap:.3e} of the gap (limit {limits[0]:g}), "
+            f"{n_active} of {int(face.sum())} far-face nodes within that of the plane, natural "
+            f"KKT residual of the box QP {kkt:.3e} ||b|| (limit {limits[1]:g}), least far-face "
+            f"multiplier {mu_rel:.3e} of the largest (limit >= {-limits[2]:g}), clamped face "
+            f"{viol:.1e} (limit: exactly 0)")
+        if not (np.isfinite(x).all() and over <= limits[0] * gap and n_active > 0
+                and kkt <= limits[1] and mu_rel >= -limits[2] and viol == 0.0):
+            raise AssertionError(f"elasticity {tag}: over {over}, active {n_active}, KKT {kkt}, "
+                                 f"least multiplier {mu_rel}, clamped {viol}")
+
+    x = c1.x_global
+    log(f"[elasticity] the free solution's far face reaches u_x = {x_lin[face].max():.2f}, the "
+        f"plane stands at {gap:.2f}")
+    if not x_lin[face].max() > gap:
+        raise AssertionError("elasticity 9b: the obstacle does not bind")
+    # The dual residual IS the primal infeasibility (jumps and penetration),
+    # and the dual stops at 1e-5 of ||d||, which holds the huge rigid-body
+    # parts of K+ b: at this recipe the far face ends ~5% of the gap inside
+    # the plane and the KKT residual near 0.3 ||b||.  A linear solve repairs
+    # the like by its defect pass; for contact there is none.  These limits
+    # say "the recipe did what it does"; the KKT point is held below
+    host_checks("9b (f32 factors, rtol 1e-5)", x, (0.1, 0.5, 0.2))
+    move = np.abs(c2.x_global - x).max()
+    if not 0 < move < 0.01 * np.abs(x).max():
+        raise AssertionError(f"elasticity 9b: the warm re-solve moved x by {move}")
+    del solver, c2
+
+    # the same solve through the plain gather version
+    gather_apply.launches = 0
+    plain = FetiSolverSparse(prob, FetiOptions(**base, gather_kernel=False), BI=BI, cI=cI,
+                             device=dev, **f32)
+    cq, tq = timed(plain)
+    del plain
+    if gather_apply.launches != 0:
+        raise AssertionError("elasticity: gather_kernel=False launched the kernel")
+    if smalxe_counts(cq.result) != smalxe_counts(c1.result) or \
+            not np.array_equal(cq.x_global, c1.x_global):
+        raise AssertionError(f"elasticity: kernel and plain solves differ: "
+                             f"{smalxe_counts(c1.result)} vs {smalxe_counts(cq.result)}")
+    log(f"[elasticity] 9b gather_kernel=False: same counts, bitwise equal x_global; {tq:.3f} s")
+    del cq, c1
+
+    # the KKT point: f64 factors, rtol 1e-9
+    torch.cuda.reset_peak_memory_stats(dev)
+    gather_apply.launches = 0  # count this path's launches only
+    tight = FetiSolverSparse(prob, FetiOptions(**base), BI=BI, cI=cI, device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ck = tight.solve(tol=Tolerances(rtol=1e-9, max_it=20000))
+    torch.cuda.synchronize(dev)
+    tk = time.perf_counter() - t0
+    n_tight = gather_apply.launches
+    res = ck.result
+    log(f"[elasticity] 9b f64 factors, rtol 1e-9: reason {res.reason}, outer {res.iterations}, "
+        f"inner {res.inner_iterations}, Hessian products {res.nmv}, M1 updates "
+        f"{res.M1_updates}, {tk:.3f} s = {1e3 * tk / max(res.nmv, 1):.3f} ms per product, "
+        f"factorization {tight.timings['factor_s']:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; gather_apply launches {n_tight}")
+    del tight
+    if res.reason != 2 or n_tight <= 0:
+        raise AssertionError(f"elasticity 9b f64: reason {res.reason}")
+    host_checks("9b (f64 factors, rtol 1e-9)", ck.x_global, (2e-5, 1e-4, 1e-4))
+    return launches + n_contact + n_tight
+
+
+def far_face_x_dofs(n_global, cells):
+    """Mask of the x-dofs of the far face x = Lx (3 dofs per node)."""
+    import numpy as np
+
+    Mx = cells[0] + 1
+    ids = np.arange(n_global)
+    return (ids % 3 == 0) & ((ids // 3) % Mx == Mx - 1)
+
+
+def phase_elastic_tolerances(bundle, dev):
+    """9t (``--only=9t``, no part of the default run): how far projected
+    elastic contact at 1,179,750 dofs stands from a KKT point, by factor
+    precision and dual tolerance."""
+    import torch
+
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.feti.large import FetiSolverSparse
+    from permon_tpu_torch.feti.solve import FetiOptions
+
+    prob, BI, cI, gap = bundle
+    face = far_face_x_dofs(prob.n_global, ELASTICITY[0])
+    opts = FetiOptions(gluing="nonred", nullspace="rbm", deterministic=True, coarse="sparse",
+                       dirichlet_by_B=False)
+    for name, kw, rtols in (("f32 factors + 2 refinement steps",
+                             dict(kplus_dtype=torch.float32, kplus_refine=2), (1e-5, 1e-7)),
+                            ("f64 factors", {}, (1e-5, 1e-7, 1e-9))):
+        solver = FetiSolverSparse(prob, opts, BI=BI, cI=cI, device=dev, **kw)
+        for rtol in rtols:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            r = solver.solve(tol=Tolerances(rtol=rtol, max_it=20000))
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter() - t0
+            kkt, mu_rel, _ = elastic_kkt(prob, face, gap, r.x_global)
+            over = float((r.x_global[face] - gap).max())
+            log(f"[elasticity] 9t {name}, rtol {rtol:g}: reason {r.result.reason}, outer / inner "
+                f"/ products / M1 / rho {smalxe_counts(r.result)}, {t:.1f} s; max(u_x - gap) "
+                f"{over / gap:.3e} of the gap, natural KKT residual {kkt:.3e} ||b||, least "
+                f"multiplier {mu_rel:.3e} of the largest")
+        del solver
+
+
+def phase_elastic_smalbe(dev):
+    """9c (``--only=9c``, no part of the default run): SMALBE proper
+    (project=False, rtol_E 0.1) on elastic contact at 361,416 dofs, against
+    its projected twin, both by the recipe of phase 9b (f32 factors + 2
+    refinement steps, rtol 1e-5).  Returns the gather_apply launches."""
+    import numpy as np
+    import torch
+
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.core.sell import gather_apply
+    from permon_tpu_torch.feti.large import FetiSolverSparse
+    from permon_tpu_torch.feti.solve import FetiOptions
+    from permon_tpu_torch.problems import build_obstacle_elasticity
+    from permon_tpu_torch.solvers.smalxe import SMALXEOptions
+
+    cells, grid = SMALBE_ELASTICITY
+    prob, BI, cI, gap = build_obstacle_elasticity(cells, grid)
+    face = far_face_x_dofs(prob.n_global, cells)
+    tol = Tolerances(rtol=1e-5)
+    f32 = dict(kplus_dtype=torch.float32, kplus_refine=2)
+    base = dict(gluing="nonred", nullspace="rbm", deterministic=True, coarse="sparse",
+                dirichlet_by_B=False)
+    gather_apply.launches = 0  # count this path's launches only
+    out = {}
+    for tag, extra in (("projected", {}),
+                       ("SMALBE", dict(project=False, smalxe=SMALXEOptions(rtol_E=0.1)))):
+        solver = FetiSolverSparse(prob, FetiOptions(**base, **extra), BI=BI, cI=cI, device=dev,
+                                  **f32)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        r = solver.solve(tol=tol)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter() - t0
+        del solver
+        res, x = r.result, r.x_global
+        kkt, mu_rel, viol = elastic_kkt(prob, face, gap, x)
+        over = float((x[face] - gap).max())
+        log(f"[elasticity] 9c {tag} at {prob.n_global} dofs, {prob.ns} subdomains: reason "
+            f"{res.reason}, outer {res.iterations}, inner {res.inner_iterations}, Hessian "
+            f"products {res.nmv}, M1 updates {res.M1_updates}, rho updates {res.rho_updates}, "
+            f"{t:.3f} s; on the host: max(u_x - gap) {over / gap:.3e} of the gap, natural KKT "
+            f"residual {kkt:.3e} ||b||, least multiplier {mu_rel:.3e} of the largest, clamped "
+            f"face {viol:.1e}")
+        if res.reason != 2 or not np.isfinite(x).all() or viol != 0.0:
+            raise AssertionError(f"elasticity 9c {tag}: reason {res.reason}, clamped {viol}")
+        out[tag] = (res, x, over, kkt)
+    res, xb, over, kkt = out["SMALBE"]
+    xa = out["projected"][1]
+    dx = float(np.abs(xb - xa).max() / np.abs(xa).max())
+    # both stop at the loose 1e-5 of phase 9b's recipe: the two solutions are
+    # held to each other and to the plane at that recipe's limits
+    log(f"[elasticity] 9c: max |x_SMALBE - x_projected| / max |x| {dx:.3e} (limit 2e-2), "
+        f"outer iterations {res.iterations} (limit > 1), M1 updates {res.M1_updates} (limit >= 1)")
+    if res.iterations <= 1 or res.M1_updates < 1 or not dx <= 2e-2 or not over <= 0.1 * gap \
+            or not kkt <= 0.5:
+        raise AssertionError(f"elasticity 9c: outer {res.iterations}, M1 {res.M1_updates}, dx "
+                             f"{dx}, over {over}, KKT {kkt}")
+    return gather_apply.launches
+
+
+def phase_band_coarse(dev):
+    """The band GG' where it switches on by itself (more than 2048 coarse
+    rows), and reorder_rcm on the twin.  Returns the gather_apply launches."""
+    import numpy as np
+    import torch
+
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.core.sell import gather_apply
+    from permon_tpu_torch.feti.large import (BlockCoarse, FetiSolverSparse, feti_solve_sparse,
+                                             reorder_rcm)
+    from permon_tpu_torch.feti.solve import FetiOptions
+    from permon_tpu_torch.problems import assembled_apply, build_sparse
+    from permon_tpu_torch.qp.projector import SPARSE_GGT_THRESHOLD
+
+    cells, grid = BAND_COARSE
+    tol = Tolerances(rtol=1e-5)
+    f32 = dict(kplus_dtype=torch.float32, kplus_refine=2, primal_refine=1)
+    t0 = time.perf_counter()
+    prob = build_sparse(cells, grid)
+    t_build = time.perf_counter() - t0
+    k = int(prob.floating.sum())
+    if k <= SPARSE_GGT_THRESHOLD:
+        raise AssertionError(f"{grid} gives {k} coarse rows, not more than {SPARSE_GGT_THRESHOLD}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    gather_apply.launches = 0  # count this path's launches only
+    solver = FetiSolverSparse(prob, FetiOptions(gluing="nonred", deterministic=True,
+                                                coarse="auto"), device=dev, **f32)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    r1 = solver.solve(tol=tol)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    r2 = solver.solve(b_loc=prob.b_loc * 1.5, tol=tol)
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    launches = gather_apply.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    pf, qp = solver._pf, solver.qp
+    if pf.ggt_band is None or pf.ggt_chol is not None or not isinstance(pf.G, BlockCoarse) \
+            or pf.G.Rb.shape[2] != 1:
+        raise AssertionError(f"band coarse: projector holds band {pf.ggt_band is not None}, G a "
+                             f"{type(pf.G).__name__}")
+    band = pf.ggt_band
+    log(f"[band] {prob.n_global} dofs, {prob.ns} subdomains of <= {prob.nl} dofs, NB {solver.NB}, "
+        f"{solver.kplus.Dinv.shape[0]} block rows, k {k}, gluing rows {qp.BE.shape[0]}; G a "
+        f"BlockCoarse {pf.G.shape} with kf 1; GG' as a band: NB {band.Dinv.shape[2]}, "
+        f"{band.Dinv.shape[0]} block rows, {str(band.Dinv.dtype)[6:]} factors "
+        f"{2 * band.Dinv.numel() * band.Dinv.element_size() / 1e6:.1f} MB")
+    log(f"[band] host setup {t_build + solver.timings['host_setup_s']:.3f} s (problem build "
+        f"{t_build:.3f} s), factorization {solver.timings['factor_s']:.3f} s, peak device "
+        f"memory {peak / 2**30:.3f} GiB")
+    its1, its2 = ([r.iterations for r in rr.results] for rr in (r1, r2))
+    reasons = [r.reason for r in r1.results + r2.results]
+    b = np.ones(prob.n_global)
+    resid = np.linalg.norm(assembled_apply(prob, r1.x_global) - b) / np.linalg.norm(b)
+    lin = np.abs(r2.x_global - 1.5 * r1.x_global).max() / np.abs(r2.x_global).max()
+    log(f"[band] first solve {t1 - t0:.3f} s (the coarse build and the band factorization "
+        f"included), dual CG iterations {its1}; warm re-solve {t2 - t1:.3f} s {its2}; reasons "
+        f"{reasons}; {1e3 * (t2 - t1) / sum(its2):.3f} ms per dual iteration; assembled residual "
+        f"(scipy f64, decomposed blocks) {resid:.3e} (limit 1e-6); |x2 - 1.5 x1| / |x2| "
+        f"{lin:.3e}; gather_apply launches {launches}")
+    if not all(r == 2 for r in reasons) or r1.dual_qp is not None or launches <= 0:
+        raise AssertionError(f"band coarse: reasons {reasons}, fast path {r1.dual_qp is None}")
+    if not (np.isfinite(r1.x_global).all() and resid <= 1e-6 and lin <= 1e-6):
+        raise AssertionError(f"band coarse: residual {resid}, linearity {lin}")
+    lam = torch.as_tensor(np.random.RandomState(1).standard_normal(qp.BE.shape[0]), device=dev)
+    w = pf.G.mv(lam)
+    y = pf.apply_cp(w)
+    if not torch.equal(pf.apply_cp(w), y):
+        raise AssertionError("band coarse: two coarse solves of one vector differ")
+    gy = pf.G.mv(pf.G.rmv(y))  # (GG') y = w
+    err = float((gy - w).abs().max() / w.abs().max())
+    log(f"[band] the coarse solve: |GG' y - w| / |w| {err:.2e} (limit 1e-10)")
+    if not err <= 1e-10:
+        raise AssertionError(f"band coarse: the coarse solve is off by {err}")
+    breakdown("band", {
+        "coarse solve (band substitutions)": lambda: pf.apply_cp(w),
+        "G (BlockCoarse mv)": lambda: pf.G.mv(lam), "G' (BlockCoarse rmv)": lambda: pf.G.rmv(w),
+        "P (coarse projector)": lambda: pf.apply_p(lam),
+        "K+ (f32, unrefined)": lambda: solver.kplus.mv(qp.BE.rmv(lam)),
+    })
+    del solver, pf, qp, prob
+
+    # reorder_rcm on the twin: a renumbering, the same solution
+    twin = build_sparse(*TWIN)
+    opts = FetiOptions(gluing="nonred")
+    gather_apply.launches = 0  # count this path's launches only
+    ra = feti_solve_sparse(twin, opts, tol=tol, device=dev, **f32)
+    t0 = time.perf_counter()
+    twin_rcm = reorder_rcm(twin)
+    t_rcm = time.perf_counter() - t0
+    rb = feti_solve_sparse(twin_rcm, opts, tol=tol, device=dev, **f32)
+    dx = np.abs(ra.x_global - rb.x_global).max() / np.abs(ra.x_global).max()
+    its_a, its_b = ra.results[0].iterations, rb.results[0].iterations
+    log(f"[band] reorder_rcm on the twin {TWIN[0]} / {TWIN[1]} ({t_rcm:.3f} s): dual CG "
+        f"iterations {its_a} before, {its_b} after (limit: within 1), |x - x_rcm| / |x| "
+        f"{dx:.3e} (limit 1e-7)")
+    if ra.result.reason != 2 or rb.result.reason != 2 or not dx <= 1e-7 \
+            or abs(its_a - its_b) > 1:
+        raise AssertionError("reorder_rcm changed the twin's solution or its count")
+    return launches + gather_apply.launches
 
 
 def random_sparse(m, n, nnz, rng):
@@ -944,12 +1463,25 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    from permon_tpu_torch.problems import build_jbearing, laplacian_3d_rcm, rcm_permuted
+    from permon_tpu_torch.problems import (build_jbearing, build_obstacle_elasticity,
+                                           laplacian_3d_rcm, rcm_permuted)
 
     t0 = time.perf_counter()
     prob = build_sparse(*NORTH_STAR)
     t_host_prob = time.perf_counter() - t0
-    gather_rec = phase_kernel(prob, dev)
+    t0 = time.perf_counter()
+    elastic = build_obstacle_elasticity(*ELASTICITY)
+    t_host_elastic = time.perf_counter() - t0
+    only = [a[7:].split(",") for a in sys.argv[1:] if a.startswith("--only=")]
+    if only:  # development: the named phases alone
+        for name, run in (("9", lambda: phase_elasticity(elastic, t_host_elastic, dev)),
+                          ("9c", lambda: phase_elastic_smalbe(dev)),
+                          ("9t", lambda: phase_elastic_tolerances(elastic, dev)),
+                          ("10", lambda: phase_band_coarse(dev))):
+            if name in only[0]:
+                run()
+        return 0
+    gather_rec = phase_kernel(prob, elastic[0], elastic[1], dev)
 
     t0 = time.perf_counter()
     jb = build_jbearing(*JBEARING)
@@ -978,6 +1510,9 @@ def main():
     sell_launches = phase_qp(jb, jb_rcm, t_host_jb, dev)
     del jb, jb_rcm
     launches += phase_contact(dev)
+    launches += phase_elasticity(elastic, t_host_elastic, dev)
+    del elastic
+    launches += phase_band_coarse(dev)
 
     print(json.dumps({"kernels": [
         {"name": "gather_apply", "route": "cuda",

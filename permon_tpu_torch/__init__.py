@@ -19,11 +19,16 @@ Idiom of the port:
 Ported so far: the large-path TFETI solve, linear and with contact
 (:mod:`permon_tpu_torch.feti.large`: inequality rows ``BI``/``cI``,
 Dirichlet rows or in-Hessian elimination, SMALXE around MPRGP on the
-projected or the unprojected dual, the lumped dual preconditioner), and
-the general QP path (``QP.create`` -> ``make_operator`` -> ``SEll`` /
-``Dia`` -> ``solve`` -> MPRGP / CG / SMALXE); everything else raises
-``NotImplementedError`` pointing at ROADMAP.md.  Entry points run on the card: ``device=None`` means the first
-CUDA device and raises without one; pass ``device="cpu"`` for the CPU.
+projected or the unprojected dual, the lumped dual preconditioner), for
+Poisson and for 3-D elasticity (rigid-body nullspace, the block coarse
+operator ``BlockCoarse``, the band factorization of the coarse GG',
+``reorder_rcm``), the whole of the band module
+(:mod:`permon_tpu_torch.core.band`), and the general QP path
+(``QP.create`` -> ``make_operator`` -> ``SEll`` / ``Dia`` -> ``solve`` ->
+MPRGP / CG / SMALXE); everything else raises ``NotImplementedError``
+pointing at ROADMAP.md.  Entry points run on the card: ``device=None``
+means the first CUDA device and raises without one; pass ``device="cpu"``
+for the CPU.
 """
 
 from __future__ import annotations

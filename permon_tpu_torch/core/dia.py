@@ -102,17 +102,19 @@ class BlockDia(LinearOperator):
         ns = len(blocks)
         nl = blocks[0].shape[0]
         nlp = nl if nlp is None else int(nlp)
-        dias = [sp.dia_matrix(b.tocsr().todia()) for b in blocks]
-        offsets = sorted({int(o) for d in dias for o in d.offsets})
+        # one conversion per distinct object: equal blocks are often ONE
+        # matrix (the problem generators cache them by box shape)
+        aligned: dict = {}
+        for b in blocks:
+            if id(b) not in aligned:
+                d = sp.dia_matrix(b.tocsr().todia())
+                aligned[id(b)] = ([int(o) for o in d.offsets], _row_aligned(d, d.shape[0]))
+        offsets = sorted({o for offs, _ in aligned.values() for o in offs})
         oidx = {o: k for k, o in enumerate(offsets)}
         data = np.zeros((ns, len(offsets), nlp))
-        for s, d in enumerate(dias):
-            n = d.shape[0]
-            for j, off in enumerate(int(o) for o in d.offsets):
-                k = oidx[off]
-                lo, hi = max(0, -off), min(n, n - off)
-                # scipy dia is column-aligned: data[j, c] = A[c - off, c]
-                data[s, k, lo:hi] = d.data[j, lo + off: hi + off]
+        for s, b in enumerate(blocks):
+            offs, rows = aligned[id(b)]
+            data[s, [oidx[o] for o in offs], : rows.shape[1]] = rows
         if 0 in oidx:  # unit diagonal on padding rows
             data[:, oidx[0], nl:] = 1.0
         tdt = as_torch_dtype(dtype) or torch.float64

@@ -420,6 +420,23 @@ class OneRow(LinearOperator):
         return self.v[None, :]
 
 
+def operator_device(op) -> torch.device:
+    """The device an operator's tensors live on: that of the first tensor
+    found in its fields, looking into nested operators, tuples of them and
+    gather tables.  An operator that holds no tensor runs wherever its
+    input lives; for it this is the CPU."""
+    seen = [op]
+    while seen:
+        cur = seen.pop(0)
+        if isinstance(cur, torch.Tensor):
+            return cur.device
+        if isinstance(cur, (tuple, list)):
+            seen.extend(cur)
+        elif dataclasses.is_dataclass(cur):
+            seen.extend(getattr(cur, f.name) for f in dataclasses.fields(cur))
+    return torch.device("cpu")
+
+
 def aslinearoperator(a, device=None) -> LinearOperator:
     """An operator from an operator (returned as it is), a numpy array or
     torch tensor (-> :class:`Dense` on ``device``) or a scipy sparse matrix

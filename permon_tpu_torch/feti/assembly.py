@@ -138,6 +138,51 @@ def constant_nullspace_columns(prob, fixed_mask: Optional[np.ndarray] = None):
     return rows, cols, vals, len(subs)
 
 
+def nullspace_columns_from_blocks(bases):
+    """Stack per-block bases (each (nl, k_s), k_s may be 0) into global COO
+    columns of the block-diagonal R (MatCreateBlockDiag(R_loc),
+    matinv.c:180-187).  Entries come column by column (the coarse column
+    numbering: subdomain by subdomain, basis column by basis column), rows
+    ascending within a column: ``Ell.from_scipy`` and the coarse numbering
+    follow this order.  One ``np.nonzero`` over the stacked bases."""
+    if not len(bases):
+        return np.array([]), np.array([]), np.array([], dtype=np.float64), 0
+    nl = bases[0].shape[0]
+    Mt = np.concatenate([np.asarray(B).T for B in bases], axis=0)  # (k, nl): row = column j
+    sub = np.repeat(np.arange(len(bases)), [B.shape[1] for B in bases])
+    cols, ri = np.nonzero(Mt)
+    return sub[cols] * nl + ri, cols, Mt[cols, ri].astype(np.float64), Mt.shape[0]
+
+
+def rigid_body_modes(coords: np.ndarray) -> np.ndarray:
+    """Orthonormalized rigid body modes of one subdomain from nodal
+    coordinates (nn, dim): 3 modes in 2-D, 6 in 3-D, dofs node-major
+    interleaved (MatNullSpaceCreateRigidBody as used in feti/ex71.c:331-339)."""
+    nn, dim = coords.shape
+    n = nn * dim
+    if dim == 2:
+        modes = np.zeros((n, 3))
+        modes[0::2, 0] = 1.0
+        modes[1::2, 1] = 1.0
+        modes[0::2, 2] = -coords[:, 1]
+        modes[1::2, 2] = coords[:, 0]
+    elif dim == 3:
+        modes = np.zeros((n, 6))
+        for d in range(3):
+            modes[d::3, d] = 1.0
+        # rotations about z, x, y
+        modes[0::3, 3] = -coords[:, 1]
+        modes[1::3, 3] = coords[:, 0]
+        modes[1::3, 4] = -coords[:, 2]
+        modes[2::3, 4] = coords[:, 1]
+        modes[0::3, 5] = coords[:, 2]
+        modes[2::3, 5] = -coords[:, 0]
+    else:
+        raise ValueError(f"unsupported dim {dim}")
+    q, _ = np.linalg.qr(modes)
+    return q
+
+
 def decompose_rhs_by_multiplicity(b_loc: np.ndarray, l2g: np.ndarray) -> np.ndarray:
     """Sum the copies into the global rhs and re-split it with
     D = 1/multiplicity (QPTMatISToBlockDiag, qptransform.c:2097-2115)."""

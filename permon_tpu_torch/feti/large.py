@@ -6,6 +6,10 @@ port of :mod:`permon_tpu.feti.large`: linear solves and contact.
   BlockDia` stencil, K+ a :class:`~permon_tpu_torch.core.band.BandCholInv`
   with fixing-dof regularization of the floating blocks, optionally f32
   factors with iterative refinement against the f64 stencil;
+- the nullspace R is analytic: one constant column per floating
+  subdomain (Poisson), or the rigid body modes from the nodal coordinates
+  (``nullspace='rbm'``, elasticity: 6 columns per floating subdomain in
+  3-D);
 - Dirichlet dofs are enforced by identity rows of BE with a nonzero cE
   (TFETI, the default) or eliminated into the Hessian
   (``dirichlet_by_B=False``: :func:`eliminate_dirichlet_in_sparse_blocks`,
@@ -20,7 +24,13 @@ port of :mod:`permon_tpu.feti.large`: linear solves and contact.
   or with ``project=False`` on the unprojected dual, where the augmented
   Lagrangian enforces G lambda = e itself (SMALBE proper);
 - B and B' of BE and of BI run through the plane-major gather tables and
-  the CUDA gather kernel (core/sell.py).
+  the CUDA gather kernel (core/sell.py);
+- past 2^26 elements of the coarse G = R'B' (the 1.18M-dof elasticity
+  shape: 540 x 253,000) G is a :class:`BlockCoarse`: per-subdomain
+  contractions of the block-diagonal R against B'v, no (k, m) array; past
+  2048 coarse rows GG' is factorized as a band (qp/projector.py);
+- :func:`reorder_rcm` renumbers every subdomain's local dofs by reverse
+  Cuthill-McKee, fused into the problem.
 
 :class:`FetiSolverSparse` factorizes once and re-solves with new right-hand
 sides; in the sparse-coarse regime (k*(N+m) > 2^25, e.g. the 101^3 north
@@ -28,8 +38,8 @@ star, or ``coarse='sparse'``) every solve, the first included, runs
 :func:`make_fast_solve_fn`: the whole chain and the defect correction on
 the device, reassembly through a fixed-order gather table (no scatter-add).
 
-Outside the slice (elasticity, meshes, other precisions, ``orth_G``,
-``reorder_rcm``) the functions raise ``NotImplementedError``; see
+Outside the slice (meshes, other precisions, ``nullspace='numeric'``,
+``qppf_redundancy``) the functions raise ``NotImplementedError``; see
 ROADMAP.md.
 """
 
@@ -44,12 +54,13 @@ import numpy as np
 import torch
 
 from .. import as_torch_dtype, not_ported, resolve_device
-from ..core.band import BandCholInv, _fixing_window, bandwidth, fixing_dofs, gershgorin_max_eig_csr
+from ..core.band import (BandCholInv, _default_nb, _fixing_window, bandwidth, fixing_dofs,
+                         gershgorin_max_eig_csr, rcm_order)
 from ..core.convergence import Tolerances
-from ..core.detred import deterministic_mode
+from ..core.detred import det_sum, deterministic_mode
 from ..core.dia import BlockDia, RegularizedBlockDia
 from ..core.extension import GatherTable, SubdomainExtension, pack_planes
-from ..core.linop import Ell, VStack
+from ..core.linop import Ell, LinearOperator, VStack
 from ..pc.dual import PCDual
 from ..qp.projector import Projector
 from ..qp.qp import QP
@@ -65,7 +76,8 @@ from ..qp.transforms import (
 from ..solvers.cg import cg
 from ..solvers.smalxe import smalxe
 from .assembly import (build_dirichlet_rows, build_gluing, constant_nullspace_columns,
-                       decompose_rhs_by_multiplicity, dirichlet_global_ids)
+                       decompose_rhs_by_multiplicity, dirichlet_global_ids,
+                       nullspace_columns_from_blocks, rigid_body_modes)
 from .solve import FetiOptions, FetiResult, assemble_global_mean
 
 _log = logging.getLogger(__name__)
@@ -85,6 +97,9 @@ class SparseFetiProblem:
     )
     dirichlet_values: Optional[np.ndarray] = None
     dirichlet_numtype: str = "global_undecomposed"
+    #: (ns, nn, dim) nodal coordinates for rigid body modes (elasticity).
+    #: Dof layout must be node-major interleaved: dof c of node n is
+    #: n*dim + c; padding nodes (all dofs with l2g = -1) are ignored.
     coords: Optional[np.ndarray] = None
 
     def dirichlet_global(self) -> np.ndarray:
@@ -107,13 +122,46 @@ class SparseFetiProblem:
         return int(self.l2g.max()) + 1
 
 
+def reorder_rcm(prob: SparseFetiProblem) -> SparseFetiProblem:
+    """Bandwidth-reducing reorder of every subdomain's LOCAL numbering,
+    fused into the problem (K blocks, b_loc, l2g, coords all permuted) so
+    downstream operators are built on the permuted numbering and applies
+    need no runtime gather.  Identical patterns share one RCM call (one
+    call serves the thousands of equal interior boxes of a regular
+    decomposition)."""
+    import scipy.sparse as sp
+
+    if prob.coords is not None and prob.coords.shape[1] != prob.nl:
+        raise NotImplementedError(
+            "reorder_rcm with node-blocked dofs (dof-per-node > 1) "
+            "needs a node-level permutation; reorder before blocking"
+        )
+    cache: dict = {}
+    K_new = []
+    perm = np.empty((prob.ns, prob.nl), dtype=np.int64)
+    for s, K in enumerate(prob.K_blocks):
+        K = sp.csr_matrix(K)
+        key = (K.shape, K.nnz, K.indptr.tobytes(), K.indices.tobytes())
+        p = cache.get(key)
+        if p is None:
+            p = cache[key] = rcm_order(K)
+        K_new.append(K[p][:, p].tocsr())
+        perm[s] = p
+    rows = np.arange(prob.ns)[:, None]
+    return dataclasses.replace(
+        prob, K_blocks=K_new, b_loc=prob.b_loc[rows, perm], l2g=prob.l2g[rows, perm],
+        coords=None if prob.coords is None else prob.coords[rows, perm],
+    )
+
+
 def _check_slice(opts: FetiOptions, contact: bool) -> None:
     """Raise for every option the port does not cover yet (ROADMAP.md), and,
     in the JAX package's words, for the two it rejects on the large path."""
     checks = [
         (opts.mesh is not None, "FetiOptions(mesh=...) (multi-device)"),
         (opts.qppf_redundancy, "FetiOptions(qppf_redundancy=True)"),
-        (opts.nullspace != "constant", f"FetiOptions(nullspace={opts.nullspace!r})"),
+        (opts.nullspace not in ("constant", "rbm"),
+         f"FetiOptions(nullspace={opts.nullspace!r}) on the large path"),
         (opts.orth_G is not None, "FetiOptions(orth_G=...)"),
         (opts.precision != "f64", f"FetiOptions(precision={opts.precision!r})"),
         (opts.coarse not in ("auto", "dense", "sparse"), f"coarse={opts.coarse!r}"),
@@ -235,13 +283,20 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _per_distinct(blocks, fn) -> list:
+    """[fn(K) for K in blocks], computed once per distinct object."""
+    cache: dict = {}
+    return [cache[id(K)] if id(K) in cache else cache.setdefault(id(K), fn(K))
+            for K in blocks]
+
+
 def band_layout(K_blocks, nl: int, NB: Optional[int] = None):
     """(NB, nb, nlp): the band block size (the bandwidth rounded up to a
     multiple of 128 unless given), the block rows per subdomain and the
     padded local size nlp = nb * NB."""
-    bw = max(bandwidth(K) for K in K_blocks)
+    bw = max(_per_distinct(K_blocks, bandwidth))
     if NB is None:
-        NB = max(((bw + 1 + 127) // 128) * 128, 128)
+        NB = _default_nb(bw)
     elif bw >= NB:
         raise ValueError(f"bandwidth {bw} >= NB {NB}")
     nb = max((nl + NB - 1) // NB, 1)
@@ -278,9 +333,10 @@ def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(
                        kplus_refine: int = 0, op_dtype=None, BI=None, cI=None,
                        device=None, timings: Optional[dict] = None):
     """Build the decomposed QP (A = BlockDia stencil, BE = [Dirichlet rows;]
-    gluing as gather tables, R constant nullspace) and the band K+ on
-    ``device``.  Local sizes are padded to a multiple of the band block
-    size NB (padding dofs get unit diagonals and l2g = -1).
+    gluing as gather tables, R analytic: constant columns or, with
+    ``nullspace='rbm'``, rigid body modes) and the band K+ on ``device``.
+    Local sizes are padded to a multiple of the band block size NB (padding
+    dofs get unit diagonals and l2g = -1).
 
     ``BI``/``cI`` attach contact inequalities B_I u <= c_I given as a
     :class:`~permon_tpu_torch.core.extension.SubdomainExtension` over the
@@ -297,7 +353,10 @@ def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(
     dev = resolve_device(device)
     t0 = time.perf_counter()
     ns, nl = prob.ns, prob.nl
-    K_blocks = [sp.csr_matrix(K) for K in prob.K_blocks]
+    # a block that is CSR already is kept as the object it is: equal blocks
+    # are often ONE object (the problem generators cache them by box shape), and the
+    # per-block setup below runs once per distinct object
+    K_blocks = [K if sp.isspmatrix_csr(K) else sp.csr_matrix(K) for K in prob.K_blocks]
     floating = np.asarray(prob.floating, dtype=bool).copy()
     elim = None
     if not opts.dirichlet_by_B and len(prob.dirichlet):
@@ -329,8 +388,14 @@ def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(
         opts, dev)
     cE_arr = np.concatenate(cE_parts)
 
-    rr, rc, rv, k = constant_nullspace_columns(probp, fixed_mask)
-    R = Ell.from_scipy(sp.coo_matrix((rv, (rr, rc)), shape=(ns * nlp, k)), device=dev) if k else None
+    if opts.nullspace == "rbm":
+        bases = _rbm_bases(prob, fixed_mask, nlp)
+        rr, rc, rv, k = nullspace_columns_from_blocks(bases)
+    else:
+        bases = None
+        rr, rc, rv, k = constant_nullspace_columns(probp, fixed_mask)
+    R = Ell.from_scipy(sp.coo_matrix((rv, (rr, rc)), shape=(ns * nlp, k)),
+                       device=dev) if k else None
 
     # Kreg = K + rho R_I (R_I'R_I)^{-1} R_I' stays an EXPLICIT rank-k
     # correction (core/dia.RegularizedBlockDia) injected by the factor loop;
@@ -338,13 +403,17 @@ def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(
     # original singular K (feti/large.py:359-412)
     A = BlockDia.from_scipy_blocks(K_blocks, nlp=nlp, dtype=op_dtype, device=dev)
     reg = []
+    rhos = _per_distinct(K_blocks, gershgorin_max_eig_csr)
     for s in range(ns):
         if fixed_mask[s]:
             continue
-        real = np.flatnonzero(prob.l2g[s] >= 0)
-        Rb = np.zeros((nl, 1))
-        Rb[real, 0] = 1.0 / np.sqrt(len(real))
-        rho = gershgorin_max_eig_csr(K_blocks[s])
+        if bases is not None:
+            Rb = bases[s][:nl]
+        else:
+            real = np.flatnonzero(prob.l2g[s] >= 0)
+            Rb = np.zeros((nl, 1))
+            Rb[real, 0] = 1.0 / np.sqrt(len(real))
+        rho = rhos[s]
         lo, hi = _fixing_window(Rb, NB, nl)
         I = fixing_dofs(Rb, lo=lo, hi=hi)
         RI = Rb[I]
@@ -383,6 +452,36 @@ def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(
         qp = qp.replace(BI=BIp, cI=None if cI is None else torch.as_tensor(
             cI, dtype=torch.float64, device=dev))
     return qp, kplus, NB, elim
+
+
+def _rbm_bases(prob: SparseFetiProblem, fixed_mask: np.ndarray, nlp: int):
+    """Per-subdomain rigid-body bases (nlp, 3 or 6), (nlp, 0) for a fixed
+    block.  The modes are built from the REAL nodes only (dof = node*dim +
+    c): padding rows of coords are meaningless, and a nonzero R entry on a
+    padding dof (unit diagonal in K) would break K R = 0 and let the
+    fixing-dof window pick padding dofs, whose grounding cannot regularize
+    the block.  A node must be wholly real or wholly padding."""
+    if prob.coords is None:
+        raise ValueError("nullspace='rbm' needs prob.coords")
+    dim = int(prob.coords.shape[2])
+    bases = []
+    for s in range(prob.ns):
+        if fixed_mask[s]:
+            bases.append(np.zeros((nlp, 0)))
+            continue
+        real_dof = (prob.l2g[s] >= 0).reshape(-1, dim)
+        node_real = real_dof[:, 0]
+        if (real_dof != node_real[:, None]).any():
+            raise ValueError(
+                f"subdomain {s}: a node has both real and padding dofs; the rigid "
+                "body modes need each node wholly real or wholly padding"
+            )
+        modes = rigid_body_modes(prob.coords[s][node_real])
+        pad = np.zeros((nlp, modes.shape[1]))
+        didx = (dim * np.flatnonzero(node_real)[:, None] + np.arange(dim)).ravel()
+        pad[didx] = modes
+        bases.append(pad)
+    return bases
 
 
 def _solve_prepared(qp, kplus, opts: FetiOptions, tol: Tolerances,
@@ -516,6 +615,120 @@ def _run_prepared_sparse(prob, opts, tol, qp, kplus, kplus_post, primal_refine,
         x_global = x_global + assemble_global_mean(du[:, : prob.nl], prob.l2g, prob.n_global)
     return FetiResult(x_global=x_global, u_decomposed=sol.x, solution=sol, result=res,
                       qp=qp, dual_qp=dual, results=results)
+
+
+@dataclasses.dataclass
+class BlockCoarse(LinearOperator):
+    """Coarse operator G = R'B' exploiting the BLOCK-DIAGONAL structure of
+    the nullspace R (<= kf columns per subdomain, kf = 6 for 3-D rigid
+    body modes): G v = per-block fixed-tree contractions of R_s against
+    the primal image B'v, G'w = B(R w); no (k, m) array is ever formed.
+
+    Exists for the large-k coarse regime (k*m past the dense-G cutoff,
+    qp/transforms.DENSE_G_ELEMENTS).  It costs one extra B/B' pair per
+    projector application plus O(ns*nlp*kf) flops.  Every coarse column is
+    owned by exactly one (subdomain, slot): ``mv`` reads its result through
+    ``inv``, the flat slot of each column (a gather; the JAX package
+    scatter-adds the slots instead, which on CUDA would mean atomics).
+    Reference: the implicit coarse-problem action of qppf.c:610-645 with
+    MATEXTENSION G (extension.c:476-540)."""
+
+    Rb: torch.Tensor  # (ns, nlp, kf) f64 block nullspace columns, zero-padded
+    cols: torch.Tensor  # (ns, kf) int64 global coarse column ids, pad -> k
+    B: Any  # extension operator (m, ns*nlp)
+    k: int
+    inv: torch.Tensor = None  # (k,) int64: the flat (s*kf + slot) owner of each column
+
+    def __post_init__(self):
+        if self.inv is None:
+            self.inv = _column_owners(self.cols, self.k)
+
+    @property
+    def shape(self):
+        return (self.k, self.B.shape[0])
+
+    def mv(self, v):
+        ns, nlp, kf = self.Rb.shape
+        w = self.B.rmv(v).reshape(ns, nlp).to(self.Rb.dtype)
+        s = det_sum(self.Rb * w[:, :, None], dim=1)  # (ns, kf), fixed tree over the dofs
+        return s.reshape(-1)[self.inv].to(v.dtype)
+
+    def rmv(self, w):
+        ns, nlp, kf = self.Rb.shape
+        wb = torch.cat([w.to(self.Rb.dtype), w.new_zeros(1, dtype=self.Rb.dtype)])[self.cols]
+        y = self.Rb[:, :, 0] * wb[:, None, 0]
+        for t in range(1, kf):  # kf <= 6 adds in slot order
+            y = y + self.Rb[:, :, t] * wb[:, None, t]
+        return self.B.mv(y.reshape(-1)).to(w.dtype)
+
+
+def _column_owners(cols: torch.Tensor, k: int) -> torch.Tensor:
+    """The flat slot of each coarse column from the (ns, kf) table ``cols``
+    (pad = k); raises unless the non-pad slots are a bijection onto
+    0..k-1."""
+    flat = cols.reshape(-1)
+    slots = torch.nonzero(flat < k)[:, 0]
+    owned = flat[slots]
+    order = torch.argsort(owned)
+    if len(slots) != k or not torch.equal(owned[order],
+                                          torch.arange(k, device=cols.device)):
+        raise ValueError("BlockCoarse: the slots do not own each coarse column exactly once")
+    return slots[order]
+
+
+def _block_shape(B):
+    """(ns, nl) of an extension operator, looking through VStack wrappers
+    (contact stacks [B_gluing; B_obstacle] over the same primal space)."""
+    if hasattr(B, "ns") and hasattr(B, "nl"):
+        return B.ns, B.nl
+    if isinstance(B, VStack) and B.ops:
+        return _block_shape(B.ops[0])
+    return None
+
+
+def block_coarse_from_R(R, B):
+    """Host build of :class:`BlockCoarse` from the block-diagonal Ell R:
+    each coarse column's support lies inside one subdomain's row block.
+    One pass over the nonzeros of R (no loop over the columns).  Returns
+    None when R or B lack the required structure (a column that is empty
+    or spans two subdomains)."""
+    import scipy.sparse as sp
+
+    from ..qp.sparse_rows import to_scipy
+
+    shp = _block_shape(B)
+    if shp is None:
+        return None
+    ns, nlp = shp
+    if ns * nlp != B.shape[1]:
+        return None
+    R_sp = to_scipy(R)
+    if R_sp is None:
+        return None
+    k = R_sp.shape[1]
+    Rc = sp.csc_matrix(R_sp)
+    Rc.sum_duplicates()
+    Rc.sort_indices()
+    nnz_col = np.diff(Rc.indptr)
+    if k == 0 or (nnz_col == 0).any():
+        return None
+    owner = Rc.indices[Rc.indptr[:-1]].astype(np.int64) // nlp
+    if (Rc.indices[Rc.indptr[1:] - 1] // nlp != owner).any():
+        return None  # not block-diagonal: the caller falls back
+    per_sub = np.bincount(owner, minlength=ns)
+    kf = max(int(per_sub.max()), 1)
+    # slot of column j: its rank among its subdomain's columns, ascending j
+    order = np.argsort(owner, kind="stable")
+    slot = np.empty(k, dtype=np.int64)
+    slot[order] = np.arange(k) - (np.cumsum(per_sub) - per_sub)[owner[order]]
+    cols = np.full((ns, kf), k, dtype=np.int64)
+    cols[owner, slot] = np.arange(k)
+    Rb = np.zeros((ns, nlp, kf))
+    col_of = np.repeat(np.arange(k), nnz_col)
+    Rb[owner[col_of], Rc.indices % nlp, slot[col_of]] = Rc.data
+    dev = R.vals.device
+    return BlockCoarse(Rb=torch.as_tensor(Rb, device=dev), cols=torch.as_tensor(cols, device=dev),
+                       B=B, k=int(k))
 
 
 def build_sparse_pf(qp, opts: FetiOptions):

@@ -5,9 +5,9 @@ and ``assemble_global_mean`` from :mod:`permon_tpu.feti.solve`.
 options object reads the same in both packages.  The large path takes
 ``gluing`` ('nonred' | 'full'), ``scale``, ``dirichlet_by_B``, ``project``
 (False only with contact: SMALBE on the unprojected dual), ``pc_dual``,
-``coarse``, ``deterministic``, ``gather_kernel`` and ``smalxe``; every
-other field must keep its default, or the solve raises
-``NotImplementedError`` (see ROADMAP.md).
+``nullspace`` ('constant' | 'rbm'), ``coarse``, ``deterministic``,
+``gather_kernel`` and ``smalxe``; every other field must keep its default,
+or the solve raises ``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ class FetiOptions:
     project: bool = True  # projector pipeline vs SMALXE (-project)
     pc_dual: str = "none"  # 'none' | 'lumped'
     orth_G: Optional[str] = None
-    #: nullspace source: 'constant' (Poisson), 'numeric', 'rbm' (elasticity)
+    #: nullspace source: 'constant' (Poisson), 'rbm' (elasticity: rigid body
+    #: modes from ``prob.coords``); 'numeric' belongs to the dense path
     nullspace: str = "constant"
     throughput: bool = False
     #: precision policy; only 'f64' is ported

@@ -6,8 +6,10 @@ counterpart, so tests can hand both sides identical factors and tables.
 It dispatches on the class NAME and never imports jax or permon_tpu.
 
 Covered: SubdomainExtension (with its gather tables and overflow COO),
-BlockDia, RegularizedBlockDia, BandCholInv, Projector (dense factors),
-Dense / DenseTree, Ell, Dia, SEll (decoded from its round plan), VStack,
+BlockDia, RegularizedBlockDia, BlockTridiag, BandCholInv (with any of
+these as its refinement operator), BlockCoarse, Projector (dense factors,
+or the band factor with its permutation), Dense / DenseTree, Ell, Dia,
+SEll (decoded from its round plan), VStack,
 Penalized, OneRow, PCDual, BoxConstraint, QP (with BI / cI) and the options
 objects SMALXEOptions / MPRGPOptions (field by field).
 """
@@ -18,11 +20,12 @@ import numpy as np
 import torch
 
 from . import not_ported, resolve_device
-from .core.band import BandCholInv
+from .core.band import BandCholInv, BlockTridiag
 from .core.dia import BlockDia, Dia, RegularizedBlockDia
 from .core.extension import GatherTable, SubdomainExtension
 from .core.linop import Dense, DenseTree, Ell, OneRow, Penalized, VStack
 from .core.sell import SEll
+from .feti.large import BlockCoarse
 from .pc.dual import PCDual
 from .qp.projector import Projector
 from .qp.qp import QP
@@ -71,6 +74,18 @@ def regularized_from_arrays(obj, device=None) -> RegularizedBlockDia:
     )
 
 
+def blocktridiag_from_arrays(obj, device=None) -> BlockTridiag:
+    dev = resolve_device(device)
+    return BlockTridiag(Ad=_t(obj.Ad, dev), Asub=_t(obj.Asub, dev),
+                        shape=tuple(int(s) for s in obj.shape))
+
+
+def blockcoarse_from_arrays(obj, device=None) -> BlockCoarse:
+    dev = resolve_device(device)
+    return BlockCoarse(Rb=_t(obj.Rb, dev), cols=_t(obj.cols, dev, torch.int64),
+                       B=from_arrays(obj.B, dev), k=int(obj.k))
+
+
 def bandcholinv_from_arrays(obj, device=None) -> BandCholInv:
     dev = resolve_device(device)
     op = None if obj.op is None else from_arrays(obj.op, dev)
@@ -80,15 +95,18 @@ def bandcholinv_from_arrays(obj, device=None) -> BandCholInv:
 
 
 def projector_from_arrays(obj, device=None) -> Projector:
-    """Port a dense-factor JAX Projector (Cholesky and/or explicit inverse)."""
+    """Port a JAX Projector: dense factors (Cholesky and/or explicit
+    inverse) or the band factor of GG' with its RCM permutation."""
     dev = resolve_device(device)
-    if getattr(obj, "ggt_band", None) is not None or getattr(obj, "cp_dist", None) is not None:
-        raise not_ported("the band / distributed coarse factors of Projector")
+    if getattr(obj, "cp_dist", None) is not None:
+        raise not_ported("the distributed coarse factor (cp_dist) of Projector")
     return Projector(
         G=from_arrays(obj.G, dev),
         ggt_chol=None if obj.ggt_chol is None else _t(obj.ggt_chol, dev),
         orthonormal_rows=bool(obj.orthonormal_rows),
         ggt_inv=None if obj.ggt_inv is None else _t(obj.ggt_inv, dev),
+        ggt_band=None if obj.ggt_band is None else from_arrays(obj.ggt_band, dev),
+        cp_perm=None if obj.cp_perm is None else _t(obj.cp_perm, dev, torch.int64),
     )
 
 
@@ -203,7 +221,9 @@ _BY_NAME = {
     "SubdomainExtension": extension_from_arrays,
     "BlockDia": blockdia_from_arrays,
     "RegularizedBlockDia": regularized_from_arrays,
+    "BlockTridiag": blocktridiag_from_arrays,
     "BandCholInv": bandcholinv_from_arrays,
+    "BlockCoarse": blockcoarse_from_arrays,
     "Projector": projector_from_arrays,
     "Dense": dense_from_arrays,
     "DenseTree": dense_from_arrays,

@@ -4,9 +4,14 @@ JAX, and those modules import the JAX package).  The CPU tests hold each
 array-equal to its original.
 
 Large path: ``build_sparse``, ``build_obstacle`` (its contact variant) and
-``assembled_system`` from ``examples/feti_large.py``; ``build_contact`` (the
-1-D semicoercive obstacle problem with Dirichlet rows) from
-``examples/feti_contact.py``.  General QP path: ``build_ex1`` / ``build_ex2``
+``assembled_system`` from ``examples/feti_large.py``; the 3-D Q1 elasticity
+family ``build_sparse_elasticity``, ``build_obstacle_elasticity`` (the
+north-star problem class: 3-D TFETI contact) and
+``assembled_elasticity_system`` from the same file, with
+``q1_elasticity_emat`` from ``examples/feti_ex71.py`` and
+``assembled_residual_free`` from ``scripts/northstar_elasticity.py``;
+``build_contact`` (the 1-D semicoercive obstacle problem with Dirichlet
+rows) from ``examples/feti_contact.py``.  General QP path: ``build_ex1`` / ``build_ex2``
 (the 1-D obstacle tutorials), ``build_jbearing`` (MINPACK-2 DPJB journal
 bearing), ``rcm_permuted`` (reverse Cuthill-McKee reordering of a QP, which
 turns a stencil Hessian into the unstructured pattern of a real mesh) and
@@ -77,33 +82,12 @@ def _eliminate(K, fixed, diag_vals):
 def build_sparse(cells=(24, 24, 24), grid=(2, 2, 2)) -> SparseFetiProblem:
     """SparseFetiProblem of the 3-D Poisson ex71 configuration at scale
     (examples/feti_large.py:48-136)."""
-    cx, cy, cz = cells
-    m, n, p = grid
-    Mx, My, Mz = cx + 1, cy + 1, cz + 1
-    ox = np.concatenate([[0], np.cumsum(_axis_split(Mx, m))])
-    oy = np.concatenate([[0], np.cumsum(_axis_split(My, n))])
-    oz = np.concatenate([[0], np.cumsum(_axis_split(Mz, p))])
+    boxes, (Mx, My, Mz) = _dmda_boxes(cells, grid)
+    ns = len(boxes)
 
-    def node_range(o, r, last, M):
-        lo = o[r] - 1 if r > 0 else 0
-        hi = o[r + 1] - 1 if r < last - 1 else M - 1
-        return lo, hi  # inclusive node ids
-
-    def box_gids(x0, x1, y0, y1, z0, z1):
-        gx = np.arange(x0, x1 + 1)
-        gy = np.arange(y0, y1 + 1)
-        gz = np.arange(z0, z1 + 1)
-        return ((gz[:, None, None] * My + gy[None, :, None]) * Mx
-                + gx[None, None, :]).reshape(-1)
-
-    ns = m * n * p
-    boxes = [
-        node_range(ox, im, m, Mx) + node_range(oy, jn, n, My) + node_range(oz, kp, p, Mz)
-        for kp in range(p) for jn in range(n) for im in range(m)
-    ]
     mult = np.zeros(Mx * My * Mz)
     for bx in boxes:
-        np.add.at(mult, box_gids(*bx), 1.0)
+        np.add.at(mult, _box_gids(bx, Mx, My), 1.0)
     nl = max((x1 - x0 + 1) * (y1 - y0 + 1) * (z1 - z0 + 1)
              for (x0, x1, y0, y1, z0, z1) in boxes)
 
@@ -119,7 +103,7 @@ def build_sparse(cells=(24, 24, 24), grid=(2, 2, 2)) -> SparseFetiProblem:
         if (nx, ny, nz) not in K_cache:
             K_cache[(nx, ny, nz)] = _kron3(nx, ny, nz)
         K = K_cache[(nx, ny, nz)]
-        gids = box_gids(*bx)
+        gids = _box_gids(bx, Mx, My)
         l2g[s, :nn] = gids
         b_loc[s, :nn] = 1.0 / mult[gids]
         if x0 == 0:  # x=0 Dirichlet face: symmetric elimination
@@ -132,6 +116,222 @@ def build_sparse(cells=(24, 24, 24), grid=(2, 2, 2)) -> SparseFetiProblem:
 
     b_loc = decompose_rhs_by_multiplicity(b_loc, l2g)
     return SparseFetiProblem(K_blocks=K_blocks, b_loc=b_loc, l2g=l2g, floating=~fixed_any)
+
+
+def _dmda_boxes(cells, grid):
+    """The subdomain node boxes (x0, x1, y0, y1, z0, z1), inclusive, of the
+    DMDA upper-corner element ownership (owned nodes plus one LOWER ghost
+    layer), x fastest over the process grid; and (Mx, My, Mz)."""
+    Ms = tuple(c + 1 for c in cells)
+    offs = [np.concatenate([[0], np.cumsum(_axis_split(M, g))]) for M, g in zip(Ms, grid)]
+
+    def node_range(o, r, last, M):
+        lo = o[r] - 1 if r > 0 else 0
+        hi = o[r + 1] - 1 if r < last - 1 else M - 1
+        return lo, hi
+
+    m, n, p = grid
+    boxes = [
+        node_range(offs[0], im, m, Ms[0]) + node_range(offs[1], jn, n, Ms[1])
+        + node_range(offs[2], kp, p, Ms[2])
+        for kp in range(p) for jn in range(n) for im in range(m)
+    ]
+    return boxes, Ms
+
+
+def _box_gids(box, Mx, My):
+    x0, x1, y0, y1, z0, z1 = box
+    gx, gy, gz = np.arange(x0, x1 + 1), np.arange(y0, y1 + 1), np.arange(z0, z1 + 1)
+    return ((gz[:, None, None] * My + gy[None, :, None]) * Mx + gx[None, None, :]).reshape(-1)
+
+
+def q1_elasticity_emat(dim: int, lam: float = 1.0, mu: float = 1.0) -> np.ndarray:
+    """Q1 isotropic elasticity element stiffness on the unit cube, nodes in
+    lexicographic order (x fastest), dofs blocked per node, 2-point Gauss
+    quadrature (examples/feti_ex71.py:29-82).  With lam = mu = 1 these are
+    the reference's hardcoded elast_{1,2,3}D_emat tables (ex71.c:26-99)."""
+    import itertools
+
+    gp = np.array([-1.0, 1.0]) / np.sqrt(3.0) * 0.5 + 0.5
+    nodes = [tuple(reversed(t)) for t in itertools.product((0, 1), repeat=dim)]
+    nn = len(nodes)
+    nstr = {1: 1, 2: 3, 3: 6}[dim]
+    D = np.zeros((nstr, nstr))
+    if dim == 1:
+        D[0, 0] = lam + 2 * mu
+    else:
+        D[:dim, :dim] = lam
+        for d in range(dim):
+            D[d, d] = lam + 2 * mu
+        for d in range(dim, nstr):
+            D[d, d] = mu
+    # strain rows: (row, displacement component, derivative direction)
+    strain = {1: [(0, 0, 0)],
+              2: [(0, 0, 0), (1, 1, 1), (2, 0, 1), (2, 1, 0)],
+              3: [(0, 0, 0), (1, 1, 1), (2, 2, 2), (3, 0, 1), (3, 1, 0), (4, 1, 2), (4, 2, 1),
+                  (5, 0, 2), (5, 2, 0)]}[dim]
+    K = np.zeros((nn * dim, nn * dim))
+    for q in itertools.product(range(2), repeat=dim):
+        x = np.array([gp[qi] for qi in q])
+        dN = np.zeros((nn, dim))
+        for a, nd in enumerate(nodes):
+            for d in range(dim):
+                prod = 1.0
+                for e in range(dim):
+                    val = x[e] if nd[e] == 1 else 1.0 - x[e]
+                    der = 1.0 if nd[e] == 1 else -1.0
+                    prod *= der if e == d else val
+                dN[a, d] = prod
+        B = np.zeros((nstr, nn * dim))
+        for a in range(nn):
+            for row, comp, direction in strain:
+                B[row, a * dim + comp] = dN[a, direction]
+        K += (1.0 / 2**dim) * B.T @ D @ B
+    return K
+
+
+def _q1_elasticity_box(nx, ny, nz, emat):
+    """Q1 elasticity stiffness of an nx*ny*nz node box, 3 dofs per node,
+    node-major interleaved, all (nx-1)(ny-1)(nz-1) elements at once."""
+    dof = 3
+    dxyz = np.array([(a & 1, (a >> 1) & 1, (a >> 2) & 1) for a in range(8)])
+    ei, ej, ek = np.meshgrid(np.arange(nx - 1), np.arange(ny - 1), np.arange(nz - 1),
+                             indexing="ij")
+    orig = (ek.ravel() * ny + ej.ravel()) * nx + ei.ravel()  # (ne,)
+    corner = orig[:, None] + (dxyz[:, 2] * ny + dxyz[:, 1]) * nx + dxyz[:, 0]  # (ne, 8)
+    edofs = (dof * corner[:, :, None] + np.arange(dof)[None, None, :]).reshape(-1, 24)
+    rows = np.repeat(edofs, 24, axis=1).ravel()
+    cols = np.tile(edofs, (1, 24)).ravel()
+    vals = np.tile(emat.ravel(), edofs.shape[0])
+    n = nx * ny * nz * dof
+    return sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+
+
+def build_sparse_elasticity(cells=(16, 16, 16), grid=(2, 2, 2), lam: float = 1.0,
+                            mu: float = 1.0) -> SparseFetiProblem:
+    """Sparse 3-D Q1 ELASTICITY analog of :func:`build_sparse` (the ex71
+    ``-pde_type Elasticity`` configuration at scale; examples/feti_large.py:
+    139-243).  Same decomposition as :func:`build_sparse`; 3 dofs per node,
+    node-major interleaved (dof = 3*node + c), so the subdomain bandwidth
+    stays 3*(nx*ny + nx + 1) + 2 and FLAT boxes keep the band block small.
+    TFETI convention: ALL subdomains are floating (6 rigid-body modes from
+    the nodal coordinates) and the clamped x = 0 face is returned as
+    ``dirichlet`` global dof ids for the large path to enforce, by B rows
+    or by elimination in the Hessian.  The rhs is the assembled unit load
+    on every dof.  Boxes of one shape share ONE stiffness matrix object."""
+    dof = 3
+    emat = q1_elasticity_emat(3, lam=lam, mu=mu)  # (24, 24), x-fastest nodes
+    boxes, (Mx, My, Mz) = _dmda_boxes(cells, grid)
+    ns = len(boxes)
+    mult = np.zeros(Mx * My * Mz)
+    for bx in boxes:
+        np.add.at(mult, _box_gids(bx, Mx, My), 1.0)
+    nn_max = max((x1 - x0 + 1) * (y1 - y0 + 1) * (z1 - z0 + 1)
+                 for (x0, x1, y0, y1, z0, z1) in boxes)
+    nl = nn_max * dof
+    l2g = np.full((ns, nl), -1, dtype=np.int64)
+    b_loc = np.zeros((ns, nl))
+    coords = np.zeros((ns, nn_max, 3))
+    K_cache: dict = {}
+    K_blocks = []
+    for s, bx in enumerate(boxes):
+        x0, x1, y0, y1, z0, z1 = bx
+        nx, ny, nz = x1 - x0 + 1, y1 - y0 + 1, z1 - z0 + 1
+        nn = nx * ny * nz
+        gids = _box_gids(bx, Mx, My)
+        l2g[s, : nn * dof] = (dof * gids[:, None] + np.arange(dof)).ravel()
+        coords[s, :nn, 0] = np.tile(np.arange(x0, x1 + 1), ny * nz)
+        coords[s, :nn, 1] = np.tile(np.repeat(np.arange(y0, y1 + 1), nx), nz)
+        coords[s, :nn, 2] = np.repeat(np.arange(z0, z1 + 1), nx * ny)
+        if (nx, ny, nz) not in K_cache:
+            K = _q1_elasticity_box(nx, ny, nz, emat)
+            if nn * dof < nl:  # unit diagonal on padding
+                K = sp.block_diag([K, sp.identity(nl - nn * dof)], format="csr")
+            K_cache[(nx, ny, nz)] = K
+        K_blocks.append(K_cache[(nx, ny, nz)])
+        # each copy carries 1/multiplicity so the copy-sum is 1 (node
+        # multiplicity == dof multiplicity in the interleaved layout)
+        b_loc[s, : nn * dof] = 1.0 / np.repeat(mult[gids], dof)
+
+    b_loc = decompose_rhs_by_multiplicity(b_loc, l2g)
+    # clamped x = 0 face: all 3 components of every x = 0 node, GLOBAL dof ids
+    fixed_nodes = np.arange(My * Mz) * Mx
+    dirichlet = (dof * fixed_nodes[:, None] + np.arange(dof)).ravel()
+    return SparseFetiProblem(
+        K_blocks=K_blocks, b_loc=b_loc, l2g=l2g, floating=np.ones(ns, dtype=bool),
+        dirichlet=dirichlet, dirichlet_numtype="global_undecomposed", coords=coords)
+
+
+def assembled_elasticity_system(cells, lam: float = 1.0, mu: float = 1.0):
+    """The globally assembled elasticity system (K, b) for verification: the
+    same Q1 assembly on the undecomposed grid, the x = 0 face eliminated
+    symmetrically (rows and columns zeroed, unit diagonal, rhs value 0)."""
+    Mx, My, Mz = (c + 1 for c in cells)
+    K = _q1_elasticity_box(Mx, My, Mz, q1_elasticity_emat(3, lam=lam, mu=mu))
+    b = np.ones(K.shape[0])
+    fixed = (3 * (np.arange(My * Mz) * Mx)[:, None] + np.arange(3)).ravel()
+    b[fixed] = 0.0
+    return _eliminate(K, fixed, 1.0), b
+
+
+def build_obstacle_elasticity(cells=(16, 16, 16), grid=(2, 2, 2), gap=None,
+                              lam: float = 1.0, mu: float = 1.0):
+    """Elastic CONTACT variant of :func:`build_sparse_elasticity`, the
+    north-star problem class (3-D TFETI contact; examples/feti_large.py:
+    281-319): the body is clamped at x = 0, loaded by the unit body force,
+    and its far face x = Lx meets a rigid plane at distance ``gap``:
+    u_x <= gap for every far-face node (one inequality row on the first
+    owning copy of each node's x-dof).  The default gap is 30% of the free
+    cantilever's x-stretch scale, so that a contact set forms.
+
+    Returns (prob, BI, cI, gap)."""
+    prob = build_sparse_elasticity(cells, grid, lam=lam, mu=mu)
+    Mx = cells[0] + 1
+    if gap is None:
+        # the bar under unit axial body force stretches ~ L^2/(2(lam+2mu))
+        gap = 0.3 * (Mx - 1) ** 2 / (2.0 * (lam + 2 * mu))
+    g = np.arange(prob.n_global)
+    BI, _ = _first_owner_rows(prob.l2g, (g % 3 == 0) & ((g // 3) % Mx == Mx - 1), 1.0)
+    return prob, BI, np.full(BI.shape[0], gap), gap
+
+
+def assembled_apply(prob: SparseFetiProblem, x_global) -> np.ndarray:
+    """sum_s scatter(K_s x|_s): the assembled operator applied to a global
+    vector, from the decomposed blocks alone (no global assembly).  Blocks
+    that are one matrix object are applied together as one
+    sparse-times-dense product."""
+    x = np.asarray(x_global, dtype=np.float64)
+    real = prob.l2g >= 0
+    xs = np.where(real, x[np.maximum(prob.l2g, 0)], 0.0)  # (ns, nl)
+    ys = np.empty_like(xs)
+    groups: dict = {}
+    for s, K in enumerate(prob.K_blocks):
+        groups.setdefault(id(K), []).append(s)
+    for subs in groups.values():
+        ys[subs] = (prob.K_blocks[subs[0]] @ xs[subs].T).T
+    return np.bincount(prob.l2g[real], weights=ys[real], minlength=prob.n_global)
+
+
+def assembled_gradient_free(prob: SparseFetiProblem, x_global):
+    """(g, free, viol) for the unit load b = 1: g = A x - b on the free
+    dofs (0 on the clamped ones) with x zeroed at the clamped dofs, i.e. the
+    eliminated system's exact gradient; ``free`` the mask of the free dofs;
+    ``viol`` the largest |x| on a clamped dof."""
+    fixed = prob.dirichlet_global()
+    x = np.array(x_global, dtype=np.float64, copy=True)
+    viol = float(np.abs(x[fixed]).max()) if len(fixed) else 0.0
+    x[fixed] = 0.0
+    free = np.ones(prob.n_global, dtype=bool)
+    free[fixed] = False
+    return np.where(free, assembled_apply(prob, x) - 1.0, 0.0), free, viol
+
+
+def assembled_residual_free(prob: SparseFetiProblem, x_global):
+    """(||(A_free x - b)|_free|| / ||b|_free||, max |x| on the clamped dofs)
+    for the unit load b = 1 (scripts/northstar_elasticity.py:29-52): the
+    host check of an elasticity solve that needs no global assembly."""
+    g, free, viol = assembled_gradient_free(prob, x_global)
+    return float(np.linalg.norm(g) / np.sqrt(free.sum())), viol
 
 
 def _first_owner_rows(l2g: np.ndarray, wanted: np.ndarray, value: float):

@@ -62,8 +62,12 @@ def ensure_pf(qp: QP, orthonormal_rows: bool = False) -> QP:
 
 def _sparse_coarse(R, B):
     """Host sparse coarse build: G = R'B' and the sparse Gram GG' (scipy),
-    without a dense R or (N, k) products; G goes to the device as a dense
-    (k, m) DenseTree.  None when either operator lacks sparse structure."""
+    without a dense R or (N, k) products.  Up to DENSE_G_ELEMENTS G goes to
+    the device as a dense (k, m) DenseTree; past it as a
+    :class:`~permon_tpu_torch.feti.large.BlockCoarse` when R is
+    block-diagonal (per-subdomain contractions, no (k, m) array), else as
+    the lazy product R'(B' .).  None when either operator lacks sparse
+    structure."""
     import numpy as np
 
     from .sparse_rows import to_scipy
@@ -75,10 +79,15 @@ def _sparse_coarse(R, B):
     G_sp = (R_sp.T @ B_sp.T).tocsr()
     ggt = (G_sp @ G_sp.T).tocsr()
     k, m = G_sp.shape
-    if k * m > DENSE_G_ELEMENTS:
-        raise not_ported("the block coarse operator BlockCoarse (k*m past 2^26)")
-    dev = R.vals.device
-    G_op = DenseTree.create(torch.as_tensor(np.asarray(G_sp.toarray()), device=dev))
+    if k * m <= DENSE_G_ELEMENTS:
+        G_op = DenseTree.create(torch.as_tensor(np.asarray(G_sp.toarray()),
+                                                device=R.vals.device))
+    else:
+        from ..feti.large import block_coarse_from_R
+
+        G_op = block_coarse_from_R(R, B)
+        if G_op is None:
+            G_op = Product((Transpose(R), Transpose(B)))  # mv = R'(B' lam)
     return G_op, ggt
 
 

@@ -317,3 +317,78 @@ def test_qp_kernel_solve_equals_plain_solve(cuda_device):
     assert (rk.iterations, rk.nmv, rk.ncg, rk.nexp, rk.nprop) == (
         rp.iterations, rp.nmv, rp.ncg, rp.nexp, rp.nprop)
     assert torch.equal(rk.x, rp.x)
+
+
+# -- the band coarse projector and BlockCoarse on the card ----------------------
+
+
+def test_band_projector_on_card_equals_cpu(cuda_device):
+    """A 3000-subdomain chain (more than 2048 coarse rows: the band GG' by
+    default) on the card against the CPU: 1e-12, and two coarse solves on
+    the card bitwise equal."""
+    from permon_tpu_torch.qp.projector import Projector
+
+    ns, nl = 3000, 4
+    l2g = np.arange(ns)[:, None] * (nl - 1) + np.arange(nl)[None, :]
+    r, c, v, m = build_gluing(l2g, "nonred", True)
+    ext = SubdomainExtension.from_coo(r, c, v, m=m, ns=ns, nl=nl)
+    pf_c = Projector.create(ext.with_gather_apply("cpu"), orthonormal_rows=False)
+    pf_g = Projector.create(ext.with_gather_apply(cuda_device), orthonormal_rows=False)
+    assert pf_g.ggt_band is not None and pf_g.ggt_band.Dinv.device.type == "cuda"
+    rng = np.random.RandomState(11)
+    x, w = rng.standard_normal(ext.shape[1]), rng.standard_normal(m)
+    for name, arg in (("apply_cp", w), ("apply_p", x), ("apply_half_q", x)):
+        got = getattr(pf_g, name)(torch.as_tensor(arg, device=cuda_device))
+        ref = getattr(pf_c, name)(torch.as_tensor(arg))
+        assert float((got.cpu() - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    wg = torch.as_tensor(w, device=cuda_device)
+    assert torch.equal(pf_g.apply_cp(wg), pf_g.apply_cp(wg))
+
+
+def test_block_coarse_on_card_equals_cpu_and_is_deterministic(cuda_device):
+    from permon_tpu_torch.core.linop import VStack
+    from permon_tpu_torch.feti.large import (BlockCoarse, assemble_qp_sparse,
+                                             block_coarse_from_R)
+    from permon_tpu_torch.problems import build_obstacle_elasticity
+
+    prob, BI, cI, _ = build_obstacle_elasticity((6, 6, 6), (2, 2, 1))
+    opts = FetiOptions(gluing="nonred", nullspace="rbm", dirichlet_by_B=False)
+    qp_g, *_ = assemble_qp_sparse(prob, opts, BI=BI, cI=cI, device=cuda_device)
+    qp_c, *_ = assemble_qp_sparse(prob, opts, BI=BI, cI=cI, device="cpu")
+    G_g = block_coarse_from_R(qp_g.R, VStack((qp_g.BE, qp_g.BI)))
+    G_c = block_coarse_from_R(qp_c.R, VStack((qp_c.BE, qp_c.BI)))
+    assert isinstance(G_g, BlockCoarse) and G_g.Rb.device.type == "cuda"
+    rng = np.random.RandomState(12)
+    v, w = rng.standard_normal(G_c.shape[1]), rng.standard_normal(G_c.shape[0])
+    vg, wg = torch.as_tensor(v, device=cuda_device), torch.as_tensor(w, device=cuda_device)
+    n0 = gather_apply.launches
+    got_v, got_w = G_g.mv(vg), G_g.rmv(wg)
+    assert gather_apply.launches == n0 + 4  # B' and B of BE and of BI, on the kernel
+    for got, ref in ((got_v, G_c.mv(torch.as_tensor(v))), (got_w, G_c.rmv(torch.as_tensor(w)))):
+        assert float((got.cpu() - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    assert torch.equal(G_g.mv(vg), got_v) and torch.equal(G_g.rmv(wg), got_w)
+
+
+def test_elastic_contact_on_card(cuda_device):
+    """Elastic contact through the kernel and through the plain version:
+    equal counts, bitwise equal x_global."""
+    from permon_tpu_torch.problems import build_obstacle_elasticity
+
+    prob, BI, cI, gap = build_obstacle_elasticity((8, 8, 8), (2, 2, 1))
+    base = dict(gluing="nonred", nullspace="rbm", deterministic=True, dirichlet_by_B=False)
+    res = {}
+    for kernel in (None, False):
+        n0 = gather_apply.launches
+        r = feti_solve_sparse(prob, FetiOptions(**base, gather_kernel=kernel), BI=BI, cI=cI,
+                              tol=Tolerances(rtol=1e-7), device=cuda_device)
+        assert (gather_apply.launches > n0) == (kernel is None)
+        res[kernel] = r
+    a, b = res[None], res[False]
+    assert a.result.reason == 2
+    assert (a.result.iterations, a.result.inner_iterations) == (b.result.iterations,
+                                                                b.result.inner_iterations)
+    assert np.array_equal(a.x_global, b.x_global)
+    Mx = 9
+    ids = np.arange(len(a.x_global))
+    face = (ids % 3 == 0) & ((ids // 3) % Mx == Mx - 1)
+    assert (a.x_global[face] <= gap + 1e-4).all() and (a.x_global[face] > gap - 1e-6).any()
