@@ -167,6 +167,13 @@ BF16_JBEARING = (96, 96)
 EX3_N = 16384  # phase 11c: tutorial ex3 at this n, the obstacle as n inequality rows
 SPMV_JBEARING = (1024, 1024)  # SpMV matrix (a): 1,048,576 rows
 LAPLACIAN_NX = 128  # SpMV matrix (b): 2,097,152 rows
+DENSE_POISSON = ((63,) * 3, (8,) * 3)  # phase 12a: 262,144 dofs, 512 subdomains of <= 729
+DENSE_ELASTICITY = ((31,) * 3, (4,) * 3)  # phase 12b: 98,304 dofs, 64 subdomains of 2,187
+#: phase 12's assembled-residual limits at rtol 1e-5: 10x what the JAX
+#: package's CPU run of a twin of the same subdomain shape gave (ex71
+#: (31,)^3 on (4,)^3: 2.278e-5; elasticity (15,)^3 on (2,)^3, rbm, nonred:
+#: 1.637e-4, lumped 1.893e-4)
+DENSE_RESID_LIMIT = {"poisson": 2.3e-4, "elasticity": 1.9e-3}
 #: published peaks of one H100 SXM: HBM bytes/s and f64 / f32 FLOP/s outside
 #: the tensor cores (a card set below 700 W runs slower)
 HBM_BYTES_PER_S = 3.35e12
@@ -1187,6 +1194,279 @@ def phase_band_coarse(dev):
     return launches + gather_apply.launches
 
 
+def matis_residual(prob, x):
+    """||A x - b|| / ||b|| of the assembled problem of a FetiProblem, on the
+    host in numpy f64: A x = sum_s P_s' K_s P_s x, b the copy sum of b_loc."""
+    import numpy as np
+
+    real = prob.l2g >= 0
+    xl = np.where(real, x[np.maximum(prob.l2g, 0)], 0.0)
+    y = np.matmul(prob.K_blocks, xl[:, :, None])[:, :, 0]
+    ids = prob.l2g[real]
+    Ax = np.bincount(ids, weights=y[real], minlength=prob.n_global)
+    b = np.bincount(ids, weights=prob.b_loc[real], minlength=prob.n_global)
+    return float(np.linalg.norm(Ax - b) / np.linalg.norm(b))
+
+
+def dense_tables_timed(tables, dev):
+    """Phase 12a's gather tables through the kernel: bitwise against the
+    plain version, then one launch with a cold L2 (CUDA events), the
+    kernel alone (profiler), the call period, the plain version and the
+    bound, in f64."""
+    import numpy as np
+    import torch
+
+    from permon_tpu_torch.core.sell import gather_apply, kernel_launchers
+
+    flush = torch.empty(1 << 28, dtype=torch.uint8, device=dev)
+    rng = np.random.RandomState(12)
+    for name, tab in tables.items():
+        xt = torch.as_tensor(rng.standard_normal(tab.n_src), device=dev)
+        plain = tab.replace(kernel=False)
+        n0 = gather_apply.launches
+        got, ref = tab.apply(xt), plain.apply(xt)
+        torch.cuda.synchronize()
+        if gather_apply.launches != n0 + 1 or not torch.equal(got, ref):
+            raise AssertionError(f"dense table {name}: kernel != plain or not one launch")
+        new, _ = kernel_launchers(tab, xt)
+        t = turns_ms({"new": new[0]}, flush)["new"][0]
+        k = kernel_only_ms(new[0], flush)
+        call = cuda_ms(lambda: tab.apply(xt))
+        plain_ms = cuda_ms(lambda: plain.apply(xt), reps=5, warmup=1, flush=flush)
+        nbytes, flops = gather_table_work(tab, xt, got)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        log(f"[dense] table {name}: {tuple(tab.idx.shape)}"
+            + ("" if tab.ov_idx is None else f" + overflow {tuple(tab.ov_idx.shape)}")
+            + f", kernel = plain bitwise; one launch, cold L2 {t:.4f} ms, kernel alone "
+            f"{fmt_ms(k)}, call period {call:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB)")
+
+
+def phase_dense(dev):
+    """12: the dense TFETI path (feti_solve / FetiSolver on a FetiProblem,
+    all_in_one, the MATIS entry), every B / B' / copy sum on the gather
+    kernel.  Returns the gather_apply launches of 12a and 12b."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.core.sell import gather_apply
+    from permon_tpu_torch.core.extension import copy_sum_table
+    from permon_tpu_torch.feti.solve import FetiOptions, FetiSolver, _feti_solve_impl
+    from permon_tpu_torch.problems import build_ex71
+
+    tol = Tolerances(rtol=1e-5)
+    launches = 0
+
+    # -- 12a: 3-D Poisson at 262,144 dofs, FetiOptions() defaults ----------
+    cells, grid = DENSE_POISSON
+    t0 = time.perf_counter()
+    prob = build_ex71(cells, grid)
+    t_build = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    gather_apply.launches = 0  # count this path's launches only
+    solver = FetiSolver(prob, FetiOptions(), device=dev)
+    t0 = time.perf_counter()
+    r1 = solver.solve(tol=tol)
+    torch.cuda.synchronize(dev)
+    t_first = time.perf_counter() - t0
+    warm = []
+    for c in (1.5, 0.5, 2.0):
+        t0 = time.perf_counter()
+        rw = solver.solve(b_loc=c * prob.b_loc, tol=tol)
+        torch.cuda.synchronize(dev)
+        warm.append((time.perf_counter() - t0, c, rw))
+    n_a = gather_apply.launches
+    launches += n_a
+    peak = torch.cuda.max_memory_allocated(dev)
+    t_warm = sorted(w[0] for w in warm)[1]
+    its = r1.result.iterations
+    resid = matis_residual(prob, r1.x_global)
+    lin = max(np.abs(rw.x_global - c * r1.x_global).max() for _, c, rw in warm) / \
+        np.abs(r1.x_global).max()
+    tm = solver.timings
+    qp, pf = solver.qp, solver._pf
+    log(f"[dense] 12a ex71 {cells} on {grid}: {prob.n_global} dofs, {prob.ns} subdomains of "
+        f"<= {prob.nl} dofs, {int((~solver._fixed_mask).sum())} floating, m {qp.BE.shape[0]} "
+        f"(full gluing), k {qp.R.shape[1]}, G {type(pf.G).__name__}")
+    log(f"[dense] 12a host build {t_build:.3f} s, assembly {tm['host_setup_s']:.3f} s, "
+        f"floating detection (batched eigvalsh) {tm['floating_s']:.3f} s, K+ factorization "
+        f"({prob.ns} batched Cholesky of {prob.nl}^2) {tm['factor_s']:.3f} s")
+    log(f"[dense] 12a first solve {t_first:.3f} s, reason {r1.result.reason}, {its} dual CG "
+        f"iterations; warm re-solves {', '.join(f'{w[0]:.3f}' for w in warm)} s (median "
+        f"{t_warm:.3f} s, iterations {[w[2].result.iterations for w in warm]}); "
+        f"{1e3 * t_warm / max(its, 1):.3f} ms per dual iteration")
+    log(f"[dense] 12a assembled residual {resid:.3e} (limit {DENSE_RESID_LIMIT['poisson']:.1e}); "
+        f"linearity of the re-solves {lin:.3e}; peak device memory {peak / 2**30:.3f} GiB; "
+        f"gather_apply launches {n_a}")
+    if r1.result.reason != 2 or any(w[2].result.reason != 2 for w in warm):
+        raise AssertionError("12a: a solve did not reach reason 2")
+    if not resid <= DENSE_RESID_LIMIT["poisson"] or not lin <= 1e-6 or n_a <= 0:
+        raise AssertionError(f"12a: residual {resid}, linearity {lin}, launches {n_a}")
+
+    # one K+ apply against its bound: the lower triangles read twice
+    v = qp.BE.rmv(torch.as_tensor(np.random.RandomState(1).standard_normal(qp.BE.shape[0]),
+                                  device=dev))
+    kp_ms = cuda_ms(lambda: solver.kplus.mv(v), reps=5, warmup=1)
+    kp_dev = device_ms(lambda: solver.kplus.mv(v), reps=5)
+    tri = prob.ns * prob.nl * (prob.nl + 1) // 2 * 8
+    kb_ms, _ = bound_ms(2 * tri + 3 * v.numel() * 8, 2 * prob.ns * prob.nl ** 2)
+    log(f"[dense] 12a one K+ apply (BlockDiagCholInv, 2 batched triangular solves): period "
+        f"{kp_ms:.3f} ms, device {fmt_ms(kp_dev)}, bound {kb_ms:.3f} ms ({2 * tri / 1e9:.2f} GB: "
+        f"the lower triangles read twice), bound / device "
+        f"{kb_ms / kp_dev if kp_dev else float('nan'):.2f}")
+    lam = torch.as_tensor(np.random.RandomState(2).standard_normal(qp.BE.shape[0]), device=dev)
+    breakdown("dense", {"B' (rmv)": lambda: qp.BE.rmv(lam), "K+": lambda: solver.kplus.mv(v),
+                        "B (mv)": lambda: qp.BE.mv(v), "P (coarse projector)":
+                        lambda: r1.dual_qp.pf.apply_p(lam)})
+    profile_solve("dense", lambda: solver.solve(b_loc=1.5 * prob.b_loc, tol=tol), warm[0][0])
+    dense_tables_timed({"B": qp.BE.gB, "B'": qp.BE.gBt,
+                        "copy sum": copy_sum_table(prob.l2g, prob.n_global, dev)}, dev)
+
+    # the same factors with every table through the plain version
+    opts_plain = FetiOptions(gather_kernel=False)
+    n0 = gather_apply.launches
+    rp = _feti_solve_impl(prob, opts_plain, tol, qp.replace(BE=qp.BE.with_kernel(False)),
+                          solver.kplus, pf=pf)
+    same = np.array_equal(rp.x_global, r1.x_global)
+    log(f"[dense] 12a through the plain gather version: {rp.result.iterations} iterations, "
+        f"x_global bitwise equal {same}, kernel launches {gather_apply.launches - n0}")
+    if rp.result.iterations != its or not same or gather_apply.launches != n0:
+        raise AssertionError("12a: the plain gather version differs from the kernel")
+    del solver, r1, rp, warm, qp, pf, v, lam
+    torch.cuda.empty_cache()
+
+    # -- 12b: 3-D elasticity, nonred gluing, rigid body modes --------------
+    cells, grid = DENSE_ELASTICITY
+    t0 = time.perf_counter()
+    prob = build_ex71(cells, grid, pde="elasticity")
+    t_build = time.perf_counter() - t0
+    gather_apply.launches = 0
+    solver = FetiSolver(prob, FetiOptions(gluing="nonred", nullspace="rbm", pc_dual="lumped"),
+                        device=dev)
+    tm = solver.timings
+    log(f"[dense] 12b ex71 elasticity {cells} on {grid}: {prob.n_global} dofs, {prob.ns} "
+        f"subdomains of {prob.nl} dofs, m {solver.qp.BE.shape[0]}, k {solver.qp.R.shape[1]}; "
+        f"host build {t_build:.3f} s, assembly {tm['host_setup_s']:.3f} s, floating detection "
+        f"{tm['floating_s']:.3f} s, K+ factorization {tm['factor_s']:.3f} s")
+    for pc in ("lumped", "none"):
+        # the preconditioner is read per solve: the same factors serve both
+        solver.opts = dataclasses.replace(solver.opts, pc_dual=pc)
+        t0 = time.perf_counter()
+        r = solver.solve(tol=tol)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        rw = solver.solve(b_loc=2.0 * prob.b_loc, tol=tol)
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        resid = matis_residual(prob, r.x_global)
+        lin = np.abs(rw.x_global - 2.0 * r.x_global).max() / np.abs(r.x_global).max()
+        log(f"[dense] 12b pc_dual={pc}: reason {r.result.reason}, {r.result.iterations} dual "
+            f"CG iterations, first solve {t1 - t0:.3f} s, warm re-solve {t2 - t1:.3f} s "
+            f"({1e3 * (t2 - t1) / max(rw.result.iterations, 1):.3f} ms per iteration), "
+            f"assembled residual {resid:.3e} (limit {DENSE_RESID_LIMIT['elasticity']:.1e}), "
+            f"linearity {lin:.3e}")
+        if r.result.reason != 2 or not resid <= DENSE_RESID_LIMIT["elasticity"] or \
+                not lin <= 1e-6:
+            raise AssertionError(f"12b {pc}: reason {r.result.reason}, residual {resid}")
+    n_b = gather_apply.launches
+    launches += n_b
+    log(f"[dense] 12b gather_apply launches {n_b}")
+    if n_b <= 0:
+        raise AssertionError("12b: the gather kernel was never launched")
+    del solver, r, rw
+    torch.cuda.empty_cache()
+    phase_dense_reference(dev)
+    return launches
+
+
+def phase_dense_reference(dev):
+    """12c: the reference tutorials' own configurations on the card."""
+    import numpy as np
+    import torch
+
+    import permon_tpu_torch as pt
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.feti.matis import MatIS, feti_problem_from_matis
+    from permon_tpu_torch.feti.solve import (FetiOptions, assemble_global_mean, assemble_qp,
+                                             feti_solve, make_blockdiag_kplus)
+    from permon_tpu_torch.problems import build_ex1, build_ex71, build_feti_contact, build_feti_ex1
+    from permon_tpu_torch.qp.transforms import Solution, all_in_one
+    from permon_tpu_torch.solvers.smalxe import SMALXEOptions
+
+    def check(tag, got, want, band=0):
+        log(f"[dense] 12c {tag}: {got} (reference {want}" + (f", band {band})" if band else ")"))
+        if abs(got - want) > band:
+            raise AssertionError(f"12c {tag}: {got} against {want}")
+
+    ex71 = build_ex71()
+    for gluing, want in (("nonred", 16), ("full", 9), ("orth", 9)):
+        r = feti_solve(ex71, FetiOptions(gluing=gluing), device=dev)
+        check(f"ex71 (7, 8, 9) on (1, 2, 3), gluing {gluing}, reason {r.result.reason}",
+              r.result.iterations, want)
+    for by_B in (True, False):
+        r = feti_solve(build_feti_ex1(4, 7), FetiOptions(dirichlet_by_B=by_B), device=dev)
+        check(f"ex1, Dirichlet {'by B' if by_B else 'in the Hessian'}", r.result.iterations, 1)
+    el = build_ex71((8, 6, 4), (7, 1, 1), pde="elasticity")
+    for pc, want in (("none", 64), ("lumped", 26)):
+        r = feti_solve(el, FetiOptions(gluing="nonred", pc_dual=pc, nullspace="numeric",
+                                       deterministic=True), tol=Tolerances(rtol=1e-6),
+                       device=dev)
+        check(f"elasticity (8, 6, 4) on (7, 1, 1), numeric nullspace, deterministic, "
+              f"pc_dual={pc}", r.result.iterations, want, band=2)
+    sm = FetiOptions(project=False, orth_G="gs", smalxe=SMALXEOptions(rho=1e1, inject_maxeig=True))
+    got, cpu = (feti_solve(build_feti_ex1(4, 7), sm, device=d).result for d in (dev, "cpu"))
+    check("ex1 SMALXE project=False orth_G='gs', outer iterations", got.iterations,
+          cpu.iterations)
+    check("ex1 SMALXE project=False orth_G='gs', inner iterations", got.inner_iterations,
+          cpu.inner_iterations, band=2)
+
+    # contact: the 1-D obstacle on 16 subdomains of 64 elements, both entries
+    prob, BI, cI, lb = build_feti_contact(16, 64)
+    A, b, lbv = build_ex1(prob.n_global)
+    ref = pt.solve(pt.QP.create(A, b, lb=lbv, device=dev), tol=Tolerances(rtol=1e-10)).x
+    ref = ref.cpu().numpy()
+    opts = FetiOptions(gluing="nonred")
+    qp, K, fixed, nb = assemble_qp(prob, opts, device=dev)
+    qp = qp.replace(BI=BI.with_gather_apply(dev), cI=torch.as_tensor(cI, device=dev))
+    child, post = all_in_one(qp, dual=True, project=True,
+                             kplus=make_blockdiag_kplus(K, fixed, prob, nb))
+    # rtol 1e-9: at 1e-8 the dual stop leaves 3.2e-6 (CPU), past the limit
+    # that tests/test_feti.py holds the 101-node twin to at 1e-8
+    res = pt.solve(child, tol=Tolerances(rtol=1e-9))
+    sol = post(Solution(x=res.x, Bt_lambda=getattr(res, "Bt_lambda", None)))
+    x_a = assemble_global_mean(sol.x.cpu().numpy().reshape(prob.ns, prob.nl), prob.l2g,
+                               prob.n_global)
+    r = feti_solve(prob, opts, tol=Tolerances(rtol=1e-9), BI=BI, cI=cI, device=dev)
+    for tag, x, lam in (("all_in_one", x_a, sol.lambda_I), ("feti_solve(BI=, cI=)", r.x_global,
+                                                            r.solution.lambda_I)):
+        err = float(np.abs(x - ref).max())
+        active = int((x - lb < 1e-8).sum())
+        lam_min = float(lam.min())
+        log(f"[dense] 12c contact {prob.ns} x {prob.nl - 1} elements through {tag}: "
+            f"max |x - x_serial| {err:.3e} (limit 1e-6), {active} active, least lambda_I "
+            f"{lam_min:.3e}")
+        if not err <= 1e-6 or active < 1 or not lam_min >= -1e-10:
+            raise AssertionError(f"12c contact {tag}: error {err}, active {active}")
+
+    # the MATIS entry: ex71 through feti_problem_from_matis
+    A = MatIS.create(ex71.K_blocks, ex71.l2g, device=dev)
+    mprob, mpost, _ = feti_problem_from_matis(A, np.ones(ex71.n_global), coords=ex71.coords)
+    for gluing in ("nonred", "full"):
+        rm = feti_solve(mprob, FetiOptions(gluing=gluing), device=dev)
+        rd = feti_solve(ex71, FetiOptions(gluing=gluing), device=dev)
+        x_post = mpost(Solution(x=rm.u_decomposed)).x.cpu().numpy()  # checks ||Ax - b||
+        same = np.array_equal(rm.x_global, rd.x_global)
+        log(f"[dense] 12c MATIS entry, gluing {gluing}: {rm.result.iterations} iterations "
+            f"against {rd.result.iterations} through the FetiProblem entry, x_global bitwise "
+            f"equal {same}, post-solve reassembly against x_global "
+            f"{np.abs(x_post - rm.x_global).max():.1e}")
+        if rm.result.iterations != rd.result.iterations or not same:
+            raise AssertionError("12c: the MATIS entry differs from the FetiProblem entry")
+
+
 def random_sparse(m, n, nnz, rng):
     """Random (m, n) CSR matrix of about nnz normal entries at uniform places."""
     import scipy.sparse as sp
@@ -1814,20 +2094,21 @@ def main():
     from permon_tpu_torch.problems import (build_jbearing, build_obstacle_elasticity,
                                            laplacian_3d_rcm, rcm_permuted)
 
-    t0 = time.perf_counter()
-    prob = build_sparse(*NORTH_STAR)
-    t_host_prob = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    elastic = build_obstacle_elasticity(*ELASTICITY)
-    t_host_elastic = time.perf_counter() - t0
+    def build_elastic():
+        t0 = time.perf_counter()
+        bundle = build_obstacle_elasticity(*ELASTICITY)
+        return bundle, time.perf_counter() - t0
+
     opts = dict(a.split("=", 1) for a in sys.argv[1:] if "=" in a)
     if "--only" in opts:  # development: the named phases alone
-        for name, run in (("9", lambda: phase_elasticity(elastic, t_host_elastic, dev)),
+        for name, run in (("9", lambda: phase_elasticity(*build_elastic(), dev)),
                           ("9c", lambda: phase_elastic_smalbe(
                               dev, "--9c-f64" in sys.argv[1:],
                               float(opts.get("--9c-rtol-E", 0.1)))),
-                          ("9t", lambda: phase_elastic_tolerances(elastic, dev)),
+                          ("9t", lambda: phase_elastic_tolerances(build_elastic()[0], dev)),
                           ("10", lambda: phase_band_coarse(dev)),
+                          ("12", lambda: phase_dense(dev)),
+                          ("12c", lambda: phase_dense_reference(dev)),
                           ("11", lambda: phase_qp_rest(*phase_qp_only(dev))),
                           ("11c", lambda: [phase_ex3(int(n), dev)
                                            for n in opts.get("--ex3-n", str(EX3_N)).split(",")]),
@@ -1837,6 +2118,10 @@ def main():
             if name in opts["--only"].split(","):
                 run()
         return 0
+    t0 = time.perf_counter()
+    prob = build_sparse(*NORTH_STAR)
+    t_host_prob = time.perf_counter() - t0
+    elastic, t_host_elastic = build_elastic()
     gather_rec = phase_kernel(prob, elastic[0], elastic[1], dev)
 
     t0 = time.perf_counter()
@@ -1870,6 +2155,7 @@ def main():
     launches += phase_elasticity(elastic, t_host_elastic, dev)
     del elastic
     launches += phase_band_coarse(dev)
+    launches += phase_dense(dev)
 
     print(json.dumps({"kernels": [
         {"name": "gather_apply", "route": "cuda",

@@ -16,7 +16,18 @@ Idiom of the port:
 - no ``jit``: ``lax.scan`` is a Python loop, ``lax.while_loop`` a Python
   loop with one host check per iteration.
 
-Ported so far: the large-path TFETI solve, linear and with contact
+Ported so far: the dense TFETI path of the PERMON tutorials
+(:func:`~permon_tpu_torch.feti.solve.feti_solve` and
+:class:`~permon_tpu_torch.feti.solve.FetiSolver` on a
+:class:`~permon_tpu_torch.feti.assembly.FetiProblem`: every gluing type,
+Dirichlet rows or elimination in the Hessian, constant / numeric /
+rigid-body nullspaces, projected CG with or without the lumped
+preconditioner, SMALXE on the projected or the unprojected dual,
+``orth_G``, contact rows; the MATIS entry
+:func:`~permon_tpu_torch.feti.matis.feti_problem_from_matis`; the whole QP
+transform chain with ``all_in_one`` / ``feti_prepare`` /
+``feti_prepare_reuse_cp`` and :mod:`permon_tpu_torch.qp.orth`), the
+large-path TFETI solve, linear and with contact
 (:mod:`permon_tpu_torch.feti.large`: inequality rows ``BI``/``cI``,
 Dirichlet rows or in-Hessian elimination, SMALXE around MPRGP on the
 projected or the unprojected dual, the lumped dual preconditioner), for
@@ -28,8 +39,9 @@ operator ``BlockCoarse``, the band factorization of the coarse GG',
 MPRGP / CG / SMALXE / PCPG / the TAO analog, ``dualize`` with the dense
 K+ of :mod:`permon_tpu_torch.core.factor`, the precision policies up to
 ``'bf16_mixed'``) with the small core modules (``matutils``, ``vec``,
-``sparse_rows``); everything else raises ``NotImplementedError`` pointing
-at ROADMAP.md.  Entry points run on the card: ``device=None``
+``sparse_rows``).  Still to come, each raising ``NotImplementedError``
+pointing at ROADMAP.md: ``FetiOptions(throughput=True)`` (the leaf path),
+``mesh`` / ``qppf_redundancy`` (multi-device), ``FetiSolver.save``.  Entry points run on the card: ``device=None``
 means the first CUDA device and raises without one; pass ``device="cpu"``
 for the CPU.
 """
@@ -98,8 +110,11 @@ from .solvers.driver import make_solver, solve  # noqa: E402
 from .solvers.mprgp import MPRGPOptions  # noqa: E402
 from .solvers.smalxe import SMALXEOptions, smalxe  # noqa: E402
 from .pc.dual import PCDual  # noqa: E402
+from .feti.assembly import FetiProblem  # noqa: E402
+from .feti.solve import FetiOptions, FetiSolver, feti_solve  # noqa: E402
 
 __all__ = ["Struct", "DeviceLike", "resolve_device", "as_torch_dtype", "not_ported",
            "QP", "solve", "make_solver", "make_operator", "aslinearoperator",
            "Tolerances", "ConvergedReason", "BoxConstraint", "MPRGPOptions",
-           "SMALXEOptions", "smalxe", "PCDual", "VStack", "Penalized"]
+           "SMALXEOptions", "smalxe", "PCDual", "VStack", "Penalized",
+           "FetiProblem", "FetiOptions", "FetiSolver", "feti_solve"]

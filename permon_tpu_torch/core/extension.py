@@ -147,6 +147,19 @@ class GatherTable(Struct):
         return gather_apply(self, x)
 
 
+def copy_sum_table(l2g: np.ndarray, n_global: int, device) -> GatherTable:
+    """The gather table out[g] = the sum of the flat copies of dof g of a
+    local-to-global map (padding, l2g = -1, skipped), each dof's copies
+    added in ascending flat order, two slots per dof and the rest in
+    overflow planes; on ``device``.  The fixed-order stand-in for the
+    scatter-add of a reassembly."""
+    flat = np.asarray(l2g, dtype=np.int64).reshape(-1)
+    pos = np.flatnonzero(flat >= 0)
+    idx, vals, ov = pack_planes(flat[pos], pos.astype(np.int32), np.ones(len(pos)),
+                                int(n_global), len(flat), cap=2)
+    return GatherTable.from_host(idx, vals, device, n_src=len(flat), overflow=ov)
+
+
 @dataclasses.dataclass
 class SubdomainExtension(LinearOperator):
     rows: np.ndarray  # (ns, k) int32 dual (link) indices, m = padding
@@ -183,6 +196,37 @@ class SubdomainExtension(LinearOperator):
         v[live] = vals[t]
         return cls(rows=np.ascontiguousarray(r.T), cols=np.ascontiguousarray(c.T),
                    vals=np.ascontiguousarray(v.T), m_dual=int(m), ns=int(ns), nl=int(nl))
+
+    @classmethod
+    def vstack(cls, ops) -> "SubdomainExtension":
+        """B = [B1; B2; ...] as ONE extension operator (same ns / nl; the
+        slots concatenate along k, each operator's rows shifted by the rows
+        before it, pad slots pointing at the combined pad row)
+        (core/extension.py:123-149).  When the first operator has gather
+        tables, the stack gets its own on their device."""
+        ns, nl = ops[0].ns, ops[0].nl
+        if any(o.ns != ns or o.nl != nl for o in ops):
+            raise ValueError("vstack needs extensions of one (ns, nl)")
+        m_total = int(sum(o.m_dual for o in ops))
+        offs = np.cumsum([0] + [o.m_dual for o in ops])
+        rows = [np.where(o.rows == o.m_dual, m_total, o.rows.astype(np.int64) + off)
+                for o, off in zip(ops, offs)]
+        out = cls(rows=np.concatenate(rows, axis=1).astype(np.int32),
+                  cols=np.concatenate([o.cols for o in ops], axis=1),
+                  vals=np.concatenate([o.vals for o in ops], axis=1),
+                  m_dual=m_total, ns=ns, nl=nl)
+        if ops[0].gB is None:
+            return out
+        return out.with_gather_apply(ops[0].gB.idx.device).with_kernel(ops[0].gB.kernel)
+
+    def todense(self):
+        """The (m, ns*nl) dense matrix, on the tables' device (the CPU
+        without tables); entries of one (row, column) add up."""
+        out = np.zeros((self.m_dual + 1, self.ns * self.nl))
+        gcols = np.arange(self.ns)[:, None] * self.nl + self.cols
+        np.add.at(out, (self.rows.reshape(-1), gcols.reshape(-1)), self.vals.reshape(-1))
+        dev = self.gB.idx.device if self.gB is not None else "cpu"
+        return torch.as_tensor(out[: self.m_dual], device=dev)
 
     def with_gather_apply(self, device=None, base_width: int = 2) -> "SubdomainExtension":
         """Attach the plane-major gather tables for both apply directions

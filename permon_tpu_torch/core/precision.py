@@ -38,8 +38,12 @@ def cast_floats(obj, dtype):
     """Re-store every float tensor reachable from ``obj`` (a tensor, a
     dataclass, a tuple or list of those) in ``dtype``; ints/bools and
     everything else are kept."""
+    from .extension import GatherTable
+
     if isinstance(obj, torch.Tensor):
         return obj.to(dtype) if obj.dtype.is_floating_point else obj
+    if isinstance(obj, GatherTable):  # keeps the padded plane stride of its idx
+        return obj.cast(dtype)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
             f.name: cast_floats(getattr(obj, f.name), dtype)

@@ -11,18 +11,88 @@ rank order,
   * nonred: d-1 rows pairing the first copy with each other copy;
   * full:   all d(d-1)/2 pairs;
 each row +1 on the lower-rank copy and -1 on the higher, scaled by
-1/sqrt(d) when ``scale``.
+1/sqrt(d) when ``scale``;
+  * orth:   d-1 orthonormal rows, row k with 1/k on copies 0..k-1 and -1
+    on copy k, normalized by sqrt(1/k + 1) (never scaled).
+
+:class:`FetiProblem` is the dense path's problem container; its floating
+test and the K+ regularization run batched on the problem's device
+(``torch.linalg.eigvalsh``), the rest of the setup on the host.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
-from .. import not_ported
+from .. import resolve_device
 
 GLUING_TYPES = ("nonred", "full", "orth")
+
+
+def floating_and_lam_max(K: torch.Tensor, tol: float = 1e-10):
+    """(floating flags as a host array, the largest eigenvalue of each
+    block as a device tensor) from one batched ``eigvalsh`` of the blocks
+    ``K``: block s is singular when its least eigenvalue is at most ``tol *
+    max(|largest|, 1)`` (the reference learns this from MUMPS null-pivot
+    counts, matinv.c:55-195)."""
+    w = torch.linalg.eigvalsh(K)
+    floating = (w[:, 0] <= tol * torch.clamp(torch.abs(w[:, -1]), min=1.0)).cpu().numpy()
+    return floating, w[:, -1].clone()
+
+
+@dataclasses.dataclass
+class FetiProblem:
+    """Host-side description of a decomposed problem (the dense path).
+
+    ``K_blocks[s]`` is subdomain s's local stiffness (equal padded size),
+    ``b_loc[s]`` its local load vector, ``l2g[s, i]`` the global id of its
+    i-th local dof (-1 marks padding).  ``dirichlet`` lists dof ids in
+    ``dirichlet_numtype`` numbering ('global_undecomposed', the default;
+    'global_decomposed': s*nl + i; 'local': (s, i) pairs); values default
+    to zero."""
+
+    K_blocks: np.ndarray  # (ns, nl, nl)
+    b_loc: np.ndarray  # (ns, nl)
+    l2g: np.ndarray  # (ns, nl) int; -1 marks padding dofs
+    dirichlet: np.ndarray
+    dirichlet_values: Optional[np.ndarray] = None
+    dirichlet_numtype: str = "global_undecomposed"
+    coords: Optional[np.ndarray] = None  # (ns, nl/dim, dim) for rigid body modes
+    #: per-subdomain floating flag (block singular); None = detect
+    floating: Optional[np.ndarray] = None
+
+    def dirichlet_global(self) -> np.ndarray:
+        """The Dirichlet set renumbered to global-undecomposed ids
+        (qpfeti.c:153-200)."""
+        return dirichlet_global_ids(self.l2g, self.dirichlet, self.dirichlet_numtype)
+
+    def floating_mask(self, tol: float = 1e-10, device=None) -> np.ndarray:
+        """``floating`` when given, else :func:`floating_and_lam_max` of the
+        blocks on ``device`` (None: the card)."""
+        if self.floating is not None:
+            return np.asarray(self.floating, dtype=bool)
+        K = torch.as_tensor(np.asarray(self.K_blocks), device=resolve_device(device))
+        return floating_and_lam_max(K, tol)[0]
+
+    @property
+    def ns(self) -> int:
+        return self.K_blocks.shape[0]
+
+    @property
+    def nl(self) -> int:
+        return self.K_blocks.shape[1]
+
+    @property
+    def n_decomposed(self) -> int:
+        return self.ns * self.nl
+
+    @property
+    def n_global(self) -> int:
+        return int(self.l2g.max()) + 1
 
 
 def dirichlet_global_ids(l2g: np.ndarray, dirichlet, numtype: str) -> np.ndarray:
@@ -64,9 +134,9 @@ def build_gluing(l2g: np.ndarray, gluing: str = "nonred", scale: bool = True,
     lower-rank (+) entry comes first."""
     if gluing not in GLUING_TYPES:
         raise ValueError(f"unknown gluing {gluing!r}")
-    if gluing == "orth":
-        raise not_ported("gluing='orth'")
     pos, start, d, _ = _copy_groups(l2g, exclude)
+    if gluing == "orth":
+        return _orth_gluing(pos, start, d)
     mscale = 1.0 / np.sqrt(d) if scale else np.ones(len(d))
     if gluing == "nonred":
         npairs = d - 1
@@ -91,6 +161,33 @@ def build_gluing(l2g: np.ndarray, gluing: str = "nonred", scale: bool = True,
     rows = np.repeat(np.arange(nrows, dtype=np.int64), 2)
     cols = np.stack([plus, minus], axis=1).reshape(-1)
     vals = np.stack([val, -val], axis=1).reshape(-1)
+    return rows, cols, vals, nrows
+
+
+def _orth_gluing(pos, start, d):
+    """The orth rows of every copy group, in the order of the JAX package
+    (dof, then row k = 1..d-1, then copies 0..k): row k holds
+    nrm/k on copies 0..k-1 and -nrm on copy k, nrm = 1/sqrt(1/k + 1)."""
+    nrows = int((d - 1).sum())
+    nent = (d - 1) * (d + 2) // 2  # row k has k + 1 entries
+    row_off = np.cumsum(d - 1) - (d - 1)
+    ent_off = np.cumsum(nent) - nent
+    total = int(nent.sum())
+    rows = np.empty(total, dtype=np.int64)
+    cols = np.empty(total, dtype=np.int64)
+    vals = np.empty(total, dtype=np.float64)
+    for dd in np.unique(d):
+        grp = np.flatnonzero(d == dd)
+        k = np.repeat(np.arange(1, dd), np.arange(2, dd + 1))  # row k of each entry
+        first = np.repeat(np.cumsum(np.arange(2, dd + 1)) - np.arange(2, dd + 1),
+                          np.arange(2, dd + 1))
+        a = np.arange(len(k)) - first  # copy index within the row: 0..k
+        nrm = 1.0 / np.sqrt(1.0 / k + 1.0)
+        v = np.where(a < k, nrm / k, -nrm)
+        at = ent_off[grp][:, None] + np.arange(len(k))[None, :]
+        rows[at] = row_off[grp][:, None] + (k - 1)[None, :]
+        cols[at] = pos[start[grp][:, None] + a[None, :]]
+        vals[at] = v[None, :]
     return rows, cols, vals, nrows
 
 
@@ -120,6 +217,65 @@ def build_dirichlet_rows(prob):
     pos_d, pos_flat = _dirichlet_copies_sorted(dg, prob.l2g.reshape(-1))
     r = len(pos_flat)
     return np.arange(r), pos_flat.astype(np.int64), np.ones(r), r, dvals[pos_d]
+
+
+def eliminate_dirichlet_in_blocks(prob: FetiProblem):
+    """Symmetric elimination in the Hessian (the dir_in_hess path): for each
+    copy (s, i) of a Dirichlet dof, in the order of the Dirichlet list and
+    then of the copies, the rhs is lifted by -K_s[:, i] * value, row and
+    column i are zeroed and alpha = max|diag| (with alpha * value on the
+    rhs) put on the diagonal (qpfeti.c:153-312).  Returns (K_blocks, b_loc,
+    masks), masks (ns, nl) marking the Dirichlet copies.
+
+    One pass over the copies' rank within their block, vectorized over the
+    blocks: a row that is no Dirichlet copy takes its lifts one rounded
+    subtraction at a time in the JAX package's order, so the arrays are
+    equal to its loop's.  A dof listed twice lifts with its first value and
+    keeps its last on the diagonal, as that loop does."""
+    K = np.array(prob.K_blocks, dtype=np.float64, copy=True)
+    b = np.array(prob.b_loc, dtype=np.float64, copy=True)
+    dg = prob.dirichlet_global()
+    dvals = (np.asarray(prob.dirichlet_values, dtype=np.float64)
+             if prob.dirichlet_values is not None else np.zeros(len(dg)))
+    masks = np.zeros((prob.ns, prob.nl), dtype=bool)
+    alpha = max(np.abs(np.diagonal(K, axis1=1, axis2=2)).max(), 1.0)
+    pos_d, pos_flat = _dirichlet_copies_sorted(dg, prob.l2g.reshape(-1))
+    if not len(pos_flat):
+        return K, b, masks
+    v = dvals[pos_d]
+    _, first = np.unique(pos_flat, return_index=True)
+    _, last_rev = np.unique(pos_flat[::-1], return_index=True)
+    first = np.sort(first)  # lifts: each copy once, in processing order
+    s_f, i_f, v_f = pos_flat[first] // prob.nl, pos_flat[first] % prob.nl, v[first]
+    counts = np.bincount(s_f, minlength=prob.ns)
+    order = np.argsort(s_f, kind="stable")
+    rank = np.empty(len(first), dtype=np.int64)
+    rank[order] = np.arange(len(first)) - (np.cumsum(counts) - counts)[s_f[order]]
+    K0 = np.asarray(prob.K_blocks, dtype=np.float64)
+    for p in range(int(rank.max()) + 1):
+        sel = rank == p
+        b[s_f[sel]] -= K0[s_f[sel], :, i_f[sel]] * v_f[sel][:, None]
+    K[s_f, i_f, :] = 0.0
+    K[s_f, :, i_f] = 0.0
+    K[s_f, i_f, i_f] = alpha
+    last = len(pos_flat) - 1 - last_rev  # the final value of each copy
+    b[pos_flat[last] // prob.nl, pos_flat[last] % prob.nl] = alpha * v[last]
+    masks[s_f, i_f] = True
+    return K, b, masks
+
+
+def numeric_nullspace_blocks(K_blocks: np.ndarray, l2g: np.ndarray,
+                             tol: float = 1e-8) -> List[np.ndarray]:
+    """Per-block numeric nullspace bases by eigendecomposition (the MUMPS
+    null-pivot detection + ICNTL(25) analog, matinv.c:55-195): the
+    eigenvectors of the eigenvalues within ``tol`` of 0 relative to
+    max(|w|, 1); a list of (nl, k_s) orthonormal bases, k_s may be 0.  One
+    batched host ``eigh`` (the same LAPACK call per block as the JAX
+    package's loop)."""
+    w, v = np.linalg.eigh(np.asarray(K_blocks))
+    scale = np.maximum(np.maximum(np.abs(w[:, -1]), np.abs(w[:, 0])), 1.0)
+    k = np.sum(np.abs(w) <= tol * scale[:, None], axis=1)
+    return [v[s][:, : k[s]] if k[s] else np.zeros((v.shape[1], 0)) for s in range(len(k))]
 
 
 def constant_nullspace_columns(prob, fixed_mask: Optional[np.ndarray] = None):

@@ -41,8 +41,8 @@ the device, reassembly through a fixed-order gather table (no scatter-add).
 As in the JAX package, ``FetiOptions.precision`` is not read here and any
 ``nullspace`` but 'rbm' is the constant one; ``orth_G``, ``project=False``
 for a linear solve and ``throughput`` are rejected in its words.  Outside
-the slice (meshes, ``qppf_redundancy``, ``gluing='orth'``) the functions
-raise ``NotImplementedError``; see ROADMAP.md.
+the slice (meshes, ``qppf_redundancy``) the functions raise
+``NotImplementedError``; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ from ..core.band import (BandCholInv, _default_nb, _fixing_window, bandwidth, fi
 from ..core.convergence import Tolerances
 from ..core.detred import det_sum, deterministic_mode
 from ..core.dia import BlockDia, RegularizedBlockDia
-from ..core.extension import GatherTable, SubdomainExtension, pack_planes
+from ..core.extension import GatherTable, SubdomainExtension, copy_sum_table
 from ..core.linop import Ell, LinearOperator, VStack
 from ..pc.dual import PCDual
 from ..qp.projector import Projector
@@ -80,7 +80,7 @@ from ..solvers.smalxe import smalxe
 from .assembly import (build_dirichlet_rows, build_gluing, constant_nullspace_columns,
                        decompose_rhs_by_multiplicity, dirichlet_global_ids,
                        nullspace_columns_from_blocks, rigid_body_modes)
-from .solve import FetiOptions, FetiResult, assemble_global_mean
+from .solve import FetiOptions, FetiResult, _device_extension, _sync, assemble_global_mean
 
 _log = logging.getLogger(__name__)
 
@@ -284,11 +284,6 @@ def eliminate_dirichlet_in_sparse_blocks(prob: SparseFetiProblem, K_blocks):
     return K_out, b, touched, elim
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def _per_distinct(blocks, fn) -> list:
     """[fn(K) for K in blocks], computed once per distinct object."""
     cache: dict = {}
@@ -316,13 +311,6 @@ def padded(prob: SparseFetiProblem, nlp: int) -> SparseFetiProblem:
     b_loc = np.zeros((prob.ns, nlp))
     b_loc[:, : prob.nl] = prob.b_loc
     return dataclasses.replace(prob, l2g=l2g, b_loc=b_loc)
-
-
-def _device_extension(B: SubdomainExtension, opts: FetiOptions, device) -> SubdomainExtension:
-    """An extension operator with its gather tables on ``device`` (routed
-    through the plain version for gather_kernel=False)."""
-    B = B.with_gather_apply(device)
-    return B.with_kernel(False) if opts.gather_kernel is False else B
 
 
 def gluing_extension(l2g: np.ndarray, opts: FetiOptions, device) -> SubdomainExtension:
@@ -776,10 +764,7 @@ class ReassemblyTables:
         l2g_pad[:, :nl] = l2g
         flat = l2g_pad.reshape(-1)
         real = flat >= 0
-        pos = np.flatnonzero(real)
-        idx, vals, ov = pack_planes(flat[pos], pos.astype(np.int32), np.ones(len(pos)),
-                                    ng, ns * nlp, cap=2)
-        copies = GatherTable.from_host(idx, vals, device, n_src=ns * nlp, overflow=ov)
+        copies = copy_sum_table(l2g_pad, ng, device)
         counts = np.bincount(flat[real], minlength=ng).astype(np.float64)
         dev = resolve_device(device)
         return cls(

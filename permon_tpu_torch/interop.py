@@ -13,8 +13,10 @@ SEll (decoded from its round plan), VStack,
 Penalized, OneRow, PCDual, BoxConstraint, QP (with BI / cI), the options
 objects SMALXEOptions / MPRGPOptions (field by field), the factorized
 inverses CholInv / BlockDiagCholInv / RaggedBlockDiagCholInv /
-IterativeInv, the precision wrappers CastTo / MixedPrecision, and
-TAOResult.  bf16 arrays (numpy has no bf16: JAX hands out ml_dtypes
+IterativeInv, the precision wrappers CastTo / MixedPrecision,
+TAOResult, and the dense TFETI path's BlockDiagDense, BlockColumns,
+Gluing, MatIS (with their gather tables built anew), BandOrthT, Solution
+and FetiProblem (a host dataclass: its arrays as they are).  bf16 arrays (numpy has no bf16: JAX hands out ml_dtypes
 arrays) cross through float32, which holds every bf16 value exactly.
 """
 
@@ -25,16 +27,22 @@ import torch
 
 from . import not_ported, resolve_device
 from .core.band import BandCholInv, BlockTridiag
+from .core.blockdiag import BlockColumns, BlockDiagDense
+from .core.gluing import Gluing
 from .core.dia import BlockDia, Dia, RegularizedBlockDia
 from .core.factor import BlockDiagCholInv, CholInv, IterativeInv, RaggedBlockDiagCholInv
 from .core.extension import GatherTable, SubdomainExtension
 from .core.linop import Dense, DenseTree, Ell, OneRow, Penalized, VStack
 from .core.precision import CastTo, MixedPrecision, cast_floats
 from .core.sell import SEll
+from .feti.assembly import FetiProblem
 from .feti.large import BlockCoarse
+from .feti.matis import MatIS
 from .pc.dual import PCDual
 from .qp.projector import Projector
+from .qp.orth import BandOrthT
 from .qp.qp import QP
+from .qp.transforms import Solution
 from .qpc.box import BoxConstraint
 from .solvers.mprgp import MPRGPOptions
 from .solvers.smalxe import SMALXEOptions
@@ -274,7 +282,51 @@ def qp_from_arrays(obj, device=None) -> QP:
               dots_dtype=obj.dots_dtype)
 
 
+def blockdiag_from_arrays(obj, device=None) -> BlockDiagDense:
+    return BlockDiagDense(blocks=_t(obj.blocks, resolve_device(device)))
+
+
+def blockcolumns_from_arrays(obj, device=None) -> BlockColumns:
+    return BlockColumns(blocks=_t(obj.blocks, resolve_device(device)))
+
+
+def gluing_from_arrays(obj, device=None) -> Gluing:
+    return Gluing.from_coo(np.asarray(obj.lams), np.asarray(obj.dofs), np.asarray(obj.vals),
+                           int(obj.m_dual), int(obj.n_primal), device=device)
+
+
+def matis_from_arrays(obj, device=None) -> MatIS:
+    return MatIS.create(np.asarray(obj.blocks), np.asarray(obj.l2g), int(obj.n_global),
+                        device=device)
+
+
+def bandortht_from_arrays(obj, device=None) -> BandOrthT:
+    return BandOrthT(band=from_arrays(obj.band, device),
+                     perm=_t(obj.perm, resolve_device(device), torch.int64),
+                     m_rows=int(obj.m_rows))
+
+
+def solution_from_arrays(obj, device=None) -> Solution:
+    dev = resolve_device(device)
+    return Solution(**{f: None if getattr(obj, f) is None else _t(getattr(obj, f), dev)
+                       for f in ("x", "lambda_E", "lambda_I", "Bt_lambda", "g")})
+
+
+def feti_problem_from_arrays(obj, device=None) -> FetiProblem:
+    """The JAX package's FetiProblem as the port's (host arrays both)."""
+    import dataclasses
+
+    return FetiProblem(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)})
+
+
 _BY_NAME = {
+    "BlockDiagDense": blockdiag_from_arrays,
+    "BlockColumns": blockcolumns_from_arrays,
+    "Gluing": gluing_from_arrays,
+    "MatIS": matis_from_arrays,
+    "BandOrthT": bandortht_from_arrays,
+    "Solution": solution_from_arrays,
+    "FetiProblem": feti_problem_from_arrays,
     "SubdomainExtension": extension_from_arrays,
     "BlockDia": blockdia_from_arrays,
     "RegularizedBlockDia": regularized_from_arrays,

@@ -11,7 +11,11 @@ north-star problem class: 3-D TFETI contact) and
 ``q1_elasticity_emat`` from ``examples/feti_ex71.py`` and
 ``assembled_residual_free`` from ``scripts/northstar_elasticity.py``;
 ``build_contact`` (the 1-D semicoercive obstacle problem with Dirichlet
-rows) from ``examples/feti_contact.py``.  General QP path: ``build_ex1`` / ``build_ex2``
+rows) from ``examples/feti_contact.py``.  Dense path (``FetiProblem``):
+``build_feti_ex1`` (examples/feti_ex1.py), ``build_ex71`` with
+``q1_poisson_emat`` (examples/feti_ex71.py: Poisson and elasticity in 1-3
+D, every Dirichlet diagonal convention) and ``build_feti_contact``
+(examples/feti_contact.py).  General QP path: ``build_ex1`` / ``build_ex2``
 (the 1-D obstacle tutorials), ``build_jbearing`` (MINPACK-2 DPJB journal
 bearing), ``rcm_permuted`` (reverse Cuthill-McKee reordering of a QP, which
 turns a stencil Hessian into the unstructured pattern of a real mesh) and
@@ -32,7 +36,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from .core.extension import SubdomainExtension
-from .feti.assembly import decompose_rhs_by_multiplicity
+from .feti.assembly import FetiProblem, decompose_rhs_by_multiplicity
 from .feti.large import SparseFetiProblem
 
 
@@ -399,6 +403,187 @@ def build_contact(ns: int = 4, ne: int = 25):
     interior[[0, n - 1]] = False
     BI, g = _first_owner_rows(l2g, interior, -1.0)
     return prob, BI, -lb[g], lb
+
+
+# ------------------------------------------------------------ dense TFETI path
+
+
+def build_feti_ex1(ns: int = 4, ne: int = 7) -> FetiProblem:
+    """The 1-D Poisson problem of the FETI tutorial ex1 (examples/
+    feti_ex1.py:21-43): -u'' = sin(pi x) on [0, 1], ``ns`` subdomains of
+    ``ne`` elements, element stiffness [[1, -1], [-1, 1]], load
+    sin((g + 1/2) h pi) h^2 / 2 to both ends of element g (pi as 3.14159,
+    as the reference writes it), both ends Dirichlet; the rhs re-split by
+    multiplicity."""
+    nl = ne + 1
+    h = 1.0 / (ns * ne)
+    K = np.zeros((ns, nl, nl))
+    i = np.arange(ne)
+    for a, c, v in ((0, 0, 1.0), (0, 1, -1.0), (1, 0, -1.0), (1, 1, 1.0)):
+        K[:, i + a, i + c] += v  # element i adds to rows i, i + 1
+    load = np.sin((np.arange(ns)[:, None] * ne + i[None, :] + 0.5) * h * 3.14159) * 0.5 * h * h
+    b = np.zeros((ns, nl))
+    b[:, :ne] += load
+    b[:, 1:] += load
+    l2g = (np.arange(ns)[:, None] * ne + np.arange(nl)[None, :]).astype(np.int64)
+    return FetiProblem(K_blocks=K, b_loc=decompose_rhs_by_multiplicity(b, l2g), l2g=l2g,
+                       dirichlet=np.array([0, ns * ne]))
+
+
+def build_feti_contact(ns: int = 4, ne: int = 25):
+    """The dense twin of :func:`build_contact` (examples/feti_contact.py:
+    31-78): the same 1-D obstacle problem as a :class:`FetiProblem` with
+    the obstacle rows BI over the (ns, nl) space.  Returns (prob, BI, cI, lb)."""
+    sprob, BI, cI, lb = build_contact(ns, ne)
+    K = np.stack([k.toarray() for k in sprob.K_blocks])
+    prob = FetiProblem(K_blocks=K, b_loc=sprob.b_loc, l2g=sprob.l2g, dirichlet=sprob.dirichlet)
+    return prob, BI, cI, lb
+
+
+def q1_poisson_emat(dim: int) -> np.ndarray:
+    """Q1 Poisson element stiffness on the unit cube (lexicographic nodes,
+    x fastest; 2-point Gauss quadrature): K = sum_q w dN dN'
+    (examples/feti_ex71.py:85-109)."""
+    import itertools
+
+    gp = np.array([-1.0, 1.0]) / np.sqrt(3.0) * 0.5 + 0.5
+    nodes = [tuple(reversed(t)) for t in itertools.product((0, 1), repeat=dim)]
+    nn = len(nodes)
+    K = np.zeros((nn, nn))
+    for q in itertools.product(range(2), repeat=dim):
+        x = np.array([gp[qi] for qi in q])
+        dN = np.zeros((nn, dim))
+        for a, nd in enumerate(nodes):
+            for d in range(dim):
+                prod = 1.0
+                for e in range(dim):
+                    val = x[e] if nd[e] == 1 else 1.0 - x[e]
+                    der = 1.0 if nd[e] == 1 else -1.0
+                    prod *= der if e == d else val
+                dN[a, d] = prod
+        K += (1.0 / 2**dim) * dN @ dN.T
+    return K
+
+
+#: the reference's hardcoded Q1 Poisson element stiffness (ex71.c)
+POISS_3D_EMAT = np.array([
+    [1 / 3, 0, 0, -1 / 12, 0, -1 / 12, -1 / 12, -1 / 12],
+    [0, 1 / 3, -1 / 12, 0, -1 / 12, 0, -1 / 12, -1 / 12],
+    [0, -1 / 12, 1 / 3, 0, -1 / 12, -1 / 12, 0, -1 / 12],
+    [-1 / 12, 0, 0, 1 / 3, -1 / 12, -1 / 12, -1 / 12, 0],
+    [0, -1 / 12, -1 / 12, -1 / 12, 1 / 3, 0, 0, -1 / 12],
+    [-1 / 12, 0, -1 / 12, -1 / 12, 0, 1 / 3, -1 / 12, 0],
+    [-1 / 12, -1 / 12, 0, -1 / 12, 0, -1 / 12, 1 / 3, 0],
+    [-1 / 12, -1 / 12, -1 / 12, 0, -1 / 12, 0, 0, 1 / 3],
+])
+
+
+def _ex71_box(ncells, active, emat, dof: int):
+    """The local numbering and stiffness of one subdomain box of
+    ``ncells`` (x, y, z) cells (an inactive axis has one layer and no
+    second corner): nodes numbered by first appearance when the cells are
+    walked z, y, x outermost to innermost and each cell's corners dz, dy,
+    dx (the dict of examples/feti_ex71.py:140-160).  Returns (the local
+    nodes' (x, y, z) offsets in that order, K) with K summed cell by cell
+    in the walk's order (``np.add.at``: the example's ``+=`` per cell)."""
+    cz, cy, cx = (np.arange(n) for n in ncells[::-1])
+    cells = np.stack(np.meshgrid(cz, cy, cx, indexing="ij"), axis=-1).reshape(-1, 3)[:, ::-1]
+    rng = [(0, 1) if a else (0,) for a in active]
+    offs = np.array([(dx, dy, dz) for dz in rng[2] for dy in rng[1] for dx in rng[0]])
+    corner = cells[:, None, :] + offs[None, :, :]  # (ncell, nc, 3), walk order
+    ext = np.asarray(ncells) + np.asarray(active, dtype=np.int64)  # nodes per axis
+    key = ((corner[..., 2] * ext[1] + corner[..., 1]) * ext[0] + corner[..., 0]).reshape(-1)
+    uniq, first, inv = np.unique(key, return_index=True, return_inverse=True)
+    order = np.argsort(first)
+    rank = np.empty(len(uniq), dtype=np.int64)
+    rank[order] = np.arange(len(uniq))
+    local = rank[inv.reshape(-1)].reshape(corner.shape[:2])  # (ncell, nc)
+    k = uniq[order]
+    nodes = np.stack([k % ext[0], (k // ext[0]) % ext[1], k // (ext[0] * ext[1])], axis=1)
+    n = len(uniq) * dof
+    idx = (local[:, :, None] * dof + np.arange(dof)).reshape(len(cells), -1)  # (ncell, nc*dof)
+    K = np.zeros(n * n)
+    np.add.at(K, (idx[:, :, None] * n + idx[:, None, :]).reshape(-1),
+              np.broadcast_to(emat, (len(cells),) + emat.shape).reshape(-1))
+    return nodes, K.reshape(n, n)
+
+
+def build_ex71(cells=(7, 8, 9), grid=(1, 2, 3), dirichlet_diag: str = "assembled",
+               pde: str = "poisson") -> FetiProblem:
+    """The FETI tutorial ex71 (examples/feti_ex71.py:125-207): Q1 Poisson or
+    elasticity on a structured grid of ``cells`` (1-3 entries), decomposed
+    on the DMDA process ``grid`` with the upper-corner element ownership,
+    the x = 0 face zeroed symmetrically in the blocks with the diagonal by
+    ``dirichlet_diag`` ('assembled': 1/multiplicity per copy; 'copy': 1;
+    'owner': 1 on the first copy and 0 on the others), the unit rhs
+    D-scaled onto the copies, padding dofs with a unit diagonal, and the
+    node coordinates (ns, nn_max, 3).  Boxes of one shape share one local
+    assembly."""
+    from .feti.matis import decompose_vec, matis_ctx
+
+    cells = tuple(cells) + (0,) * (3 - len(cells))
+    grid = tuple(grid) + (1,) * (3 - len(grid))
+    active = tuple(c > 0 for c in cells)
+    dim = sum(active)
+    Ms = tuple(c + 1 for c in cells)
+    Mx, My, Mz = Ms
+    offs = [np.concatenate([[0], np.cumsum(_axis_split(M, g))]) for M, g in zip(Ms, grid)]
+
+    def cell_range(o, r, last, c, act):
+        if not act:
+            return 0, 1
+        return (o[r] - 1 if r > 0 else 0), (o[r + 1] - 1 if r < last - 1 else c)
+
+    m, n, p = grid
+    boxes = [tuple(cell_range(offs[a], r, grid[a], cells[a], active[a])
+                   for a, r in enumerate((im, jn, kp)))
+             for kp in range(p) for jn in range(n) for im in range(m)]
+    dof = dim if pde == "elasticity" else 1
+    if pde == "elasticity":
+        emat = q1_elasticity_emat(dim)
+    else:
+        emat = POISS_3D_EMAT if dim == 3 else q1_poisson_emat(dim)
+    local = {}
+    for bx in boxes:
+        shape = tuple(hi - lo for lo, hi in bx)
+        if shape not in local:
+            local[shape] = _ex71_box(shape, active, emat, dof)
+    nn_max = max(len(local[tuple(hi - lo for lo, hi in bx)][0]) for bx in boxes)
+    ns, nl = len(boxes), nn_max * dof
+    K = np.zeros((ns, nl, nl))
+    l2g = np.full((ns, nl), -1, dtype=np.int64)
+    coords = np.zeros((ns, nn_max, 3))
+    for s, bx in enumerate(boxes):
+        nodes, Kb = local[tuple(hi - lo for lo, hi in bx)]
+        g = nodes + np.array([lo for lo, _ in bx])  # global node (x, y, z)
+        gid = (g[:, 2] * My + g[:, 1]) * Mx + g[:, 0]
+        nd = len(gid) * dof
+        l2g[s, :nd] = (gid[:, None] * dof + np.arange(dof)).reshape(-1)
+        coords[s, : len(gid)] = g
+        K[s, :nd, :nd] = Kb
+        K[s, np.arange(nd, nl), np.arange(nd, nl)] = 1.0  # padding: unit diagonal
+
+    n_global = Mx * My * Mz * dof
+    mult = matis_ctx(l2g, n_global).multiplicity
+    # the x = 0 face: rows and columns zeroed, the diagonal by convention
+    gnode = np.where(l2g >= 0, l2g // dof, -1)
+    fixed = (l2g >= 0) & (gnode % Mx == 0)
+    ss, ii = np.nonzero(fixed)
+    K[ss, ii, :] = 0.0
+    K[ss, :, ii] = 0.0
+    g = l2g[ss, ii]
+    if dirichlet_diag == "assembled":
+        diag = 1.0 / mult[g]
+    elif dirichlet_diag == "owner":  # the first copy in (s, i) order gets 1
+        _, first = np.unique(g, return_index=True)
+        diag = np.zeros(len(g))
+        diag[first] = 1.0
+    else:
+        diag = np.ones(len(g))
+    K[ss, ii, ii] = diag
+    b_loc = decompose_vec(np.ones(n_global), l2g, mult, scale=True)
+    return FetiProblem(K_blocks=K, b_loc=b_loc, l2g=l2g,
+                       dirichlet=np.array([], dtype=np.int64), coords=coords)
 
 
 def assembled_system(cells):

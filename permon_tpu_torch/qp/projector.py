@@ -154,6 +154,11 @@ class Projector(Struct):
         return self.G.rmv(self.apply_cp(self.G.mv(x))).to(x.dtype)
 
     def apply_p(self, x):
+        if self.G.shape[0] == self.G.shape[1]:
+            # a square G of full row rank has ker G = {0}: P = 0 exactly.
+            # x - Q x would leave round-off of the size of eps |x|, on which
+            # a projected CG iterates (its curvature may come out positive)
+            return torch.zeros_like(x)
         return x - self.apply_q(x)
 
     def apply_gtg(self, x):
@@ -239,6 +244,8 @@ class CachedProjector:
         return out
 
     def apply_p(self, x):
+        if self.pf.G.shape[0] == self.pf.G.shape[1]:
+            return torch.zeros_like(x)  # ker G = {0}, as Projector.apply_p
         return x - self.apply_q(x)
 
     def apply_half_q(self, x):

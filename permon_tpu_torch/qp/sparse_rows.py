@@ -91,7 +91,8 @@ def _retabled(old: SubdomainExtension, new: SubdomainExtension) -> SubdomainExte
     the tables bake the values and rows in, so they are built anew."""
     if old.gB is None:
         return new
-    return new.replace(gB=None, gBt=None).with_gather_apply(old.gB.idx.device)
+    return new.replace(gB=None, gBt=None).with_gather_apply(old.gB.idx.device).with_kernel(
+        old.gB.kernel)
 
 
 def _ell(op: Ell, cols: torch.Tensor, vals: torch.Tensor, m: int) -> Ell:

@@ -1,25 +1,37 @@
-"""QP transforms — the part of :mod:`permon_tpu.qp.transforms` the
-large-path TFETI solves (linear and contact) and the general QP path with
-inequality rows use: ``dualize`` (with a supplied K+ or the dense
-:func:`~permon_tpu_torch.core.factor.make_inv`) -> ``homogenize_eq`` ->
-``enforce_eq_by_projector``, folded back by ``compose``.
+"""QP transforms — the port of :mod:`permon_tpu.qp.transforms` (the QPT
+chain of the reference, src/qp/interface/qptransform.c).
 
 Each transform maps a QP to ``(child_qp, post_solve)`` where
 ``post_solve`` takes the child's :class:`Solution` and returns the
-parent's (reference: src/qp/interface/qpchain.c, qptransform.c).
+parent's (reference: src/qp/interface/qpchain.c); ``compose`` folds the
+post-solves back in reverse order:
+
+- :func:`dualize` (QPTDualize, qptransform.c:909-1197), with a supplied K+
+  or the dense :func:`~permon_tpu_torch.core.factor.make_inv`;
+- :func:`homogenize_eq` (qptransform.c:437-527),
+  :func:`enforce_eq_by_projector` (:215-316),
+  :func:`enforce_eq_by_penalty` (:329-410),
+  :func:`orthonormalize_eq` (:566-660);
+- :func:`scale_objective_by_scalar`, :func:`normalize_objective`,
+  :func:`normalize_hessian` (:1574-1771), :func:`freeze_ineq` (:1810-1826),
+  :func:`scale` (:1437-1553), :func:`split_be` (:1829-1902),
+  :func:`remove_gluing_of_dirichlet_dofs` (:1327-1388);
+- the pipelines :func:`all_in_one` (QPTAllInOne, :2151-2205),
+  :func:`feti_prepare` and :func:`feti_prepare_reuse_cp` (:1200-1260).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import Struct
 from ..core.factor import make_inv
-from ..core.linop import Dense, DenseTree, Product, Transpose, VStack
-from .projector import ProjOp, Projector
+from ..core.linop import Dense, DenseTree, Penalized, Product, Scaled, Transpose, VStack
+from .projector import ProjOp, Projector, dense_rows
 from ..qpc.box import BoxConstraint
 from .qp import QP
 
@@ -70,8 +82,6 @@ def _sparse_coarse(R, B):
     block-diagonal (per-subdomain contractions, no (k, m) array), else as
     the lazy product R'(B' .).  None when either operator lacks sparse
     structure."""
-    import numpy as np
-
     from .sparse_rows import to_scipy
 
     R_sp = to_scipy(R)
@@ -237,3 +247,376 @@ def enforce_eq_by_projector(qp: QP) -> Tuple[QP, PostSolve]:
         return sol.replace(lambda_E=lam_E, Bt_lambda=bt)
 
     return child, post
+
+
+# --------------------------------------------------------------------------
+# enforce_eq_by_penalty, orthonormalize_eq
+# --------------------------------------------------------------------------
+
+
+def enforce_eq_by_penalty(qp: QP, rho) -> Tuple[QP, PostSolve]:
+    """A_child = A + rho BE'BE (lazy), b_child = b + rho BE'cE
+    (QPTEnforceEqByPenalty, qptransform.c:329-410)."""
+    if qp.BE is None:
+        raise ValueError("enforce_eq_by_penalty needs equality constraints")
+    pen = Penalized(a=qp.A, b=qp.BE, rho=torch.as_tensor(rho, dtype=qp.b.dtype,
+                                                         device=qp.b.device))
+    b = qp.b
+    if qp.cE is not None:
+        b = b + rho * qp.BE.rmv(qp.cE)
+    return qp.replace(A=pen, b=b, BE=None, cE=None), lambda s: s
+
+
+def orthonormalize_eq(qp: QP, method: str = "gs") -> Tuple[QP, PostSolve]:
+    """(T BE, T) = orth_rows(BE): the child has BE = T BE with orthonormal
+    rows and cE = T cE; the post-solve maps lambda_E back by T'
+    (QPTOrthonormalizeEq).  'inexact' keeps BE and only attaches its exact
+    projector; 'implicit' / 'cholesky' on more than 2048 sparse rows take
+    the band factorization of BB' (:func:`~permon_tpu_torch.qp.orth.
+    orth_rows_implicit_band`), never a dense (m, n) array."""
+    from .orth import orth_rows, orth_rows_implicit_band
+
+    if qp.BE is None:
+        return qp, lambda s: s
+    if method == "inexact":
+        return qp.replace(pf=Projector.create(qp.BE)), lambda s: s
+    if method in ("implicit", "cholesky") and qp.BE.shape[0] > 2048:
+        qt = orth_rows_implicit_band(qp.BE)
+        if qt is not None:
+            Qop, Top = qt
+            cE = Top.mv(qp.cE) if qp.cE is not None else None
+            child = qp.replace(BE=Qop, cE=cE, pf=Projector.create(Qop, orthonormal_rows=True))
+
+            def post_band(sol: Solution) -> Solution:
+                lam = sol.lambda_E
+                return sol.replace(lambda_E=None if lam is None else Top.rmv(lam))
+
+            return child, post_band
+    Bd = dense_rows(qp.BE)
+    # 'implicit' keeps Q = T BE unassembled in the reference; on the small
+    # dense constraint dimension the Cholesky form is the same algebra
+    Q, T = orth_rows(Bd, "cholesky" if method == "implicit" else method)
+    cE = T @ qp.cE if qp.cE is not None else None
+    BEn = Dense.create(Q)
+    child = qp.replace(BE=BEn, cE=cE, pf=Projector.create(BEn, orthonormal_rows=True))
+
+    def post(sol: Solution) -> Solution:
+        lam = sol.lambda_E
+        return sol.replace(lambda_E=None if lam is None else T.T @ lam)
+
+    return child, post
+
+
+# --------------------------------------------------------------------------
+# objective scaling / normalization
+# --------------------------------------------------------------------------
+
+
+def scale_objective_by_scalar(qp: QP, scale_A, scale_b) -> Tuple[QP, PostSolve]:
+    """A *= scale_A, b *= scale_b; the child's solution is scaled by
+    scale_A / scale_b, box bounds by scale_b / scale_A with infinite entries
+    kept (VecScaleSkipInf), every multiplier by 1 / scale_b
+    (QPTScaleObjectiveByScalar, qptransform.c:1704-1771)."""
+    sA = torch.as_tensor(scale_A, dtype=qp.b.dtype, device=qp.b.device)
+    sb = torch.as_tensor(scale_b, dtype=qp.b.dtype, device=qp.b.device)
+    box = qp.box
+    if box is not None:
+        s = sb / sA
+        box = box.replace(lb=torch.where(torch.isinf(box.lb), box.lb, box.lb * s),
+                          ub=torch.where(torch.isinf(box.ub), box.ub, box.ub * s))
+    child = qp.replace(A=Scaled(inner=qp.A, scale=sA), b=qp.b * sb, box=box, x0=None)
+
+    def post(sol: Solution) -> Solution:
+        out = sol.replace(x=sol.x * (sA / sb))
+        for name in ("lambda_E", "lambda_I", "Bt_lambda"):
+            v = getattr(sol, name)
+            if v is not None:
+                out = out.replace(**{name: v / sb})
+        return out
+
+    return child, post
+
+
+def normalize_objective(qp: QP) -> Tuple[QP, PostSolve]:
+    """scale_A = 1/||A|| (power method), scale_b = 1/||b|| (1/||A|| when
+    b = 0) (QPTNormalizeObjective, qptransform.c:1574-1592)."""
+    from ..core.eig import max_eigenvalue
+
+    norm_A = max_eigenvalue(qp.A, device=qp.b.device)
+    norm_b = torch.linalg.vector_norm(qp.b)
+    norm_b = torch.where(norm_b == 0, norm_A, norm_b)
+    return scale_objective_by_scalar(qp, 1.0 / norm_A, 1.0 / norm_b)
+
+
+def normalize_hessian(qp: QP) -> Tuple[QP, PostSolve]:
+    """scale_A = scale_b = 1/||A|| (QPTNormalizeHessian, qptransform.c:1611)."""
+    from ..core.eig import max_eigenvalue
+
+    norm_A = max_eigenvalue(qp.A, device=qp.b.device)
+    return scale_objective_by_scalar(qp, 1.0 / norm_A, 1.0 / norm_A)
+
+
+# --------------------------------------------------------------------------
+# freeze_ineq / scale
+# --------------------------------------------------------------------------
+
+
+def freeze_ineq(qp: QP) -> Tuple[QP, PostSolve]:
+    """Move BI, cI into the equality block: child BE = [BE; BI], cE = [cE;
+    cI] (QPTFreezeIneq, qptransform.c:1810-1826); the post-solve splits
+    lambda_E back into lambda_E / lambda_I."""
+    if qp.BI is None:
+        raise ValueError("freeze_ineq needs inequality constraints")
+    zeros = lambda m: torch.zeros(m, dtype=qp.b.dtype, device=qp.b.device)  # noqa: E731
+    cI = qp.cI if qp.cI is not None else zeros(qp.BI.shape[0])
+    if qp.BE is None:
+        child = qp.replace(BE=qp.BI, cE=cI, BI=None, cI=None, pf=None)
+
+        def post(sol: Solution) -> Solution:
+            return sol.replace(lambda_I=sol.lambda_E, lambda_E=None)
+
+        return child, post
+    mE = qp.BE.shape[0]
+    cE = qp.cE if qp.cE is not None else zeros(mE)
+    child = qp.replace(BE=VStack((qp.BE, qp.BI)), cE=torch.cat([cE, cI]),
+                       BI=None, cI=None, pf=None)
+
+    def post_split(sol: Solution) -> Solution:
+        lam = sol.lambda_E
+        if lam is None:
+            return sol
+        return sol.replace(lambda_E=lam[:mE], lambda_I=lam[mE:])
+
+    return child, post_split
+
+
+def eq_multiplicity_scaling(qp: QP) -> torch.Tensor:
+    """d_i = 1/sqrt(multiplicity) per BE row, the multiplicity being the
+    row's nonzero count (QPGetEqMultiplicityScaling, qp.c:1632+); sparse
+    operators are counted on the host, others densified."""
+    from .sparse_rows import row_nnz
+
+    nnz = row_nnz(qp.BE)
+    if nnz is not None:
+        return torch.as_tensor(1.0 / np.sqrt(np.maximum(nnz, 1)), dtype=torch.float64,
+                               device=qp.b.device)
+    Bd = dense_rows(qp.BE)
+    cnt = torch.sum(torch.abs(Bd) > 0, dim=1)
+    return 1.0 / torch.sqrt(torch.clamp(cnt, min=1).to(Bd.dtype))
+
+
+def scale(qp: QP, scale_O: Optional[str] = None,
+          scale_E: Optional[str] = None) -> Tuple[QP, PostSolve]:
+    """Row scaling of the objective / equality constraints (QPTScale,
+    qptransform.c:1437-1553).  scale_O: None | 'rows_norm_2'; scale_E:
+    None | 'rows_norm_2' | 'ddm_multiplicity'.  A sparse BE keeps its type
+    (its rows scaled on the host); only a matrix-free BE is densified."""
+    child, dE = qp, None
+    if scale_O == "rows_norm_2":
+        Ad = qp.A.todense()
+        d = 1.0 / torch.linalg.vector_norm(Ad, dim=1)
+        child = child.replace(A=Dense.create(d[:, None] * Ad), b=d * qp.b)
+    elif scale_O is not None:
+        raise ValueError(f"unsupported scale_O {scale_O!r}")
+    if scale_E is not None and qp.BE is not None:
+        from .sparse_rows import row_sqnorm, scale_rows
+
+        if scale_E == "rows_norm_2":
+            sq = row_sqnorm(qp.BE)
+            dE = (torch.as_tensor(1.0 / np.sqrt(sq), dtype=qp.b.dtype, device=qp.b.device)
+                  if sq is not None
+                  else 1.0 / torch.linalg.vector_norm(dense_rows(qp.BE), dim=1))
+        elif scale_E == "ddm_multiplicity":
+            dE = eq_multiplicity_scaling(qp)
+        else:
+            raise ValueError(f"unsupported scale_E {scale_E!r}")
+        cE = dE * qp.cE if qp.cE is not None else None
+        try:
+            BEs = scale_rows(qp.BE, dE)
+        except TypeError:
+            BEs = Dense.create(dE[:, None] * dense_rows(qp.BE))
+        child = child.replace(BE=BEs, cE=cE, pf=None)
+
+    def post(sol: Solution) -> Solution:
+        if dE is not None and sol.lambda_E is not None:
+            return sol.replace(lambda_E=dE * sol.lambda_E)
+        return sol
+
+    return child, post
+
+
+# --------------------------------------------------------------------------
+# pipelines
+# --------------------------------------------------------------------------
+
+
+def all_in_one(qp: QP, dual: bool = True, project: bool = True, penalty: float = 0.0,
+               regularize: bool = True, normalize: Optional[str] = None,
+               freeze: bool = False, orth_eq: Optional[str] = None,
+               kplus=None) -> Tuple[QP, PostSolve]:
+    """The option-driven pipeline (QPTAllInOne, qptransform.c:2151-2205):
+    [normalize] -> [OrthonormalizeEq] -> [FreezeIneq] -> [Dualize ->
+    OrthonormalizeEq] -> [HomogenizeEq -> EnforceEqByProjector] ->
+    [EnforceEqByPenalty].  Returns the last child and the composed
+    post-solve; ``-feti`` is dual=True, project=True with a block-diagonal
+    ``kplus``."""
+    steps: List[Tuple[QP, PostSolve]] = []
+
+    def apply(fn, *a, **k):
+        nonlocal qp
+        qp, ps = fn(qp, *a, **k)
+        steps.append((qp, ps))
+
+    if normalize == "objective":
+        apply(normalize_objective)
+    elif normalize == "hessian":
+        apply(normalize_hessian)
+    if orth_eq and qp.BE is not None:
+        apply(orthonormalize_eq, orth_eq)
+    if freeze and qp.BI is not None:
+        apply(freeze_ineq)
+    if dual:
+        apply(dualize, regularize=regularize, kplus=kplus)
+        if orth_eq and qp.BE is not None:
+            apply(orthonormalize_eq, orth_eq)
+    if project and qp.BE is not None:
+        if qp.cE is not None:
+            apply(homogenize_eq)
+        apply(enforce_eq_by_projector)
+    if penalty:
+        if qp.BE is None:
+            raise ValueError("penalty needs equality constraints left in the chain")
+        apply(enforce_eq_by_penalty, penalty)
+    return qp, compose(steps)
+
+
+def feti_prepare(qp: QP, kplus=None, regularize: bool = True) -> Tuple[QP, PostSolve]:
+    """Dualize -> HomogenizeEq -> EnforceEqByProjector, the TFETI pipeline
+    (QPTFetiPrepare, qptransform.c:1200-1210)."""
+    return all_in_one(qp, dual=True, project=True, regularize=regularize, kplus=kplus)
+
+
+def _leaves(obj) -> list:
+    """The tensors and host arrays an operator holds, nested operators,
+    tuples and gather tables included, in field order."""
+    out, todo = [], [obj]
+    while todo:
+        cur = todo.pop(0)
+        if isinstance(cur, (torch.Tensor, np.ndarray)):
+            out.append(cur)
+        elif isinstance(cur, (tuple, list)):
+            todo.extend(cur)
+        elif dataclasses.is_dataclass(cur) and not isinstance(cur, type):
+            todo.extend(getattr(cur, f.name) for f in dataclasses.fields(cur))
+    return out
+
+
+#: key -> (pf, keyed leaves).  The leaves are held STRONGLY in the entry so
+#: their id()s cannot be recycled while it lives (an id()-only key could
+#: match a different later operator); the size bound keeps a long session
+#: from piling up stale factorizations.
+_REUSE_CP_CACHE: dict = {}
+_REUSE_CP_CACHE_MAX = 16
+
+
+def feti_prepare_reuse_cp(qp: QP, kplus=None, regularize: bool = True,
+                          _cache=_REUSE_CP_CACHE) -> Tuple[QP, PostSolve]:
+    """QPTFetiPrepareReuseCP (qptransform.c:1213-1251): :func:`feti_prepare`
+    with the coarse factorization (the dual QP's projector) cached under the
+    identity of the tensors and host arrays of BE, BI and R (the objects
+    that persist across ``qp.replace(b=...)``), and threaded into
+    :func:`dualize` so that GG' is not factorized again."""
+    leaves = _leaves((qp.BE, qp.BI, qp.R))
+    key = tuple(id(leaf) for leaf in leaves)
+    entry = _cache.get(key)
+    pf = entry[0] if entry is not None else None
+    dual, post_d = dualize(qp, regularize=regularize, kplus=kplus, pf=pf)
+    if pf is None and dual.BE is not None:
+        _cache[key] = (dual.pf, leaves)
+        while len(_cache) > _REUSE_CP_CACHE_MAX:
+            _cache.pop(next(iter(_cache)))
+    steps = [(dual, post_d)]
+    cur = dual
+    if cur.cE is not None:
+        cur, post_h = homogenize_eq(cur)
+        steps.append((cur, post_h))
+    if cur.BE is not None:
+        pf_holder = cur
+        cur, post_p = enforce_eq_by_projector(cur)
+        # the child carries the (cached) coarse factorization, as the
+        # reference's child QP keeps its QPPF
+        cur = cur.replace(pf=pf_holder.pf)
+        steps.append((cur, post_p))
+    return cur, compose(steps)
+
+
+def feti_prepare_reuse_cp_reset() -> None:
+    """Drop every cached coarse factorization (QPTFetiPrepareReuseCPReset,
+    qptransform.c:1254-1260)."""
+    _REUSE_CP_CACHE.clear()
+
+
+def split_be(qp: QP) -> Tuple[QP, PostSolve]:
+    """BE rows reordered into gluing rows (>= 2 nonzeros) then Dirichlet
+    rows (1 nonzero): child BE = [Bg; Bd] (QPTSplitBE, qptransform.c:
+    1829-1902); the post-solve permutes lambda_E back."""
+    from .sparse_rows import permute_rows, row_nnz
+
+    if qp.BE is None:
+        raise ValueError("split_be needs equality constraints")
+    nnz = row_nnz(qp.BE)
+    if nnz is None:
+        nnz = (torch.sum(torch.abs(dense_rows(qp.BE)) > 0, dim=1)).cpu().numpy()
+    perm = np.concatenate([np.flatnonzero(nnz >= 2), np.flatnonzero(nnz == 1)])
+    try:
+        Bnew = permute_rows(qp.BE, perm)
+    except TypeError:
+        Bnew = Dense.create(dense_rows(qp.BE)[torch.as_tensor(perm)])
+    dev = qp.b.device
+    cE = qp.cE[torch.as_tensor(perm, device=dev)] if qp.cE is not None else None
+    inv_perm = torch.as_tensor(np.argsort(perm), device=dev)
+
+    def post(sol: Solution) -> Solution:
+        if sol.lambda_E is None:
+            return sol
+        return sol.replace(lambda_E=sol.lambda_E[inv_perm])
+
+    return qp.replace(BE=Bnew, cE=cE, pf=None), post
+
+
+def remove_gluing_of_dirichlet_dofs(qp: QP, dirichlet_dofs) -> Tuple[QP, PostSolve]:
+    """Drop the BE rows that act on Dirichlet dofs (QPTRemoveGluingOf-
+    DirichletDofs, qptransform.c:1327-1388, permonmatfetiutils.c:1-167); the
+    post-solve pads lambda_E back to the parent's rows with zeros."""
+    from .sparse_rows import restrict_rows, to_coo
+
+    if qp.BE is None:
+        raise ValueError("remove_gluing_of_dirichlet_dofs needs equality constraints")
+    coo = to_coo(qp.BE)
+    if coo is not None:
+        rows, cols, vals, (m_parent, n) = coo
+        mask = np.zeros(n, dtype=bool)
+        mask[np.asarray(dirichlet_dofs, dtype=np.int64)] = True
+        touched = np.zeros(m_parent, dtype=bool)
+        touched[rows[mask[cols] & (vals != 0)]] = True
+        keep = np.flatnonzero(~touched)
+        Bnew = restrict_rows(qp.BE, keep)
+    else:
+        Bd = dense_rows(qp.BE)
+        m_parent = Bd.shape[0]
+        mask = torch.zeros(Bd.shape[1], dtype=torch.bool, device=Bd.device)
+        mask[torch.as_tensor(np.asarray(dirichlet_dofs, dtype=np.int64), device=Bd.device)] = True
+        keep = np.flatnonzero(~(torch.abs(Bd[:, mask]) > 0).any(dim=1).cpu().numpy())
+        Bnew = Dense.create(Bd[torch.as_tensor(keep, device=Bd.device)])
+    dev = qp.b.device
+    keep_t = torch.as_tensor(keep, device=dev)
+    cE = qp.cE[keep_t] if qp.cE is not None else None
+
+    def post(sol: Solution) -> Solution:
+        if sol.lambda_E is None:
+            return sol
+        lam = sol.lambda_E.new_zeros(m_parent)
+        lam[keep_t] = sol.lambda_E  # keep is a set of distinct rows
+        return sol.replace(lambda_E=lam)
+
+    return qp.replace(BE=Bnew, cE=cE, pf=None), post

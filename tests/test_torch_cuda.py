@@ -519,3 +519,94 @@ def test_detect_nullspace_of_an_array_runs_on_the_card(cuda_device):
     Rc, defect_c = detect_nullspace_dense(L, device="cpu")
     assert R.device.type == "cuda" and defect == defect_c == 1
     np.testing.assert_allclose(np.abs(R.cpu().numpy()), np.abs(Rc.numpy()), atol=1e-12)
+
+
+# -- the dense TFETI path --------------------------------------------------------
+
+
+def test_gluing_and_matis_copy_sum_on_kernel_equal_plain_bitwise(cuda_device):
+    """The Gluing tables (B u, B'lambda with overflow) and the MatIS copy
+    sum on the gather kernel: one launch each, bitwise equal to the plain
+    version and to the CPU run (MatIS.mv also takes the blocks' product,
+    cuBLAS against the CPU's BLAS: 1e-13 there)."""
+    from permon_tpu_torch.core.gluing import Gluing
+    from permon_tpu_torch.feti.matis import MatIS
+    from permon_tpu_torch.problems import build_ex71
+
+    prob = build_ex71((7, 7, 7), (2, 2, 2))
+    r, c, v, m = build_gluing(prob.l2g, "full")
+    n = prob.n_decomposed
+    B = Gluing.from_coo(r, c, v, m, n, device=cuda_device)
+    Bc = Gluing.from_coo(r, c, v, m, n, device="cpu")
+    A = MatIS.create(prob.K_blocks, prob.l2g, device=cuda_device)
+    Ac = MatIS.create(prob.K_blocks, prob.l2g, device="cpu")
+    assert B.gBt.ov_tgt is not None and A.copies.ov_tgt is not None
+    rng = np.random.RandomState(0)
+    u, lam, xg = rng.standard_normal(n), rng.standard_normal(m), rng.standard_normal(
+        prob.n_global)
+    yl = rng.standard_normal(prob.n_decomposed)
+    for op, cpu_op, fn, x in ((B, Bc, "mv", u), (B, Bc, "rmv", lam),
+                              (A, Ac, "_assemble", yl), (A, Ac, "mv", xg)):
+        xt = torch.as_tensor(x, device=cuda_device)
+        n0 = gather_apply.launches
+        got = getattr(op, fn)(xt)
+        assert gather_apply.launches == n0 + 1
+        plain = getattr(op.with_kernel(False), fn)(xt)
+        torch.cuda.synchronize()
+        assert gather_apply.launches == n0 + 1
+        assert torch.equal(got, plain)
+        want = getattr(cpu_op, fn)(torch.as_tensor(x)).numpy()
+        if fn == "mv" and op is A:
+            np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                                       atol=1e-13 * np.abs(want).max())
+        else:
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_floating_mask_on_card_equals_cpu(cuda_device):
+    from permon_tpu_torch.problems import build_ex71
+
+    for kw in (dict(cells=(8, 8, 8), grid=(2, 2, 2)), dict(dirichlet_diag="owner"),
+               dict(cells=(6, 4, 4), grid=(2, 2, 1), pde="elasticity")):
+        prob = build_ex71(**kw)
+        np.testing.assert_array_equal(prob.floating_mask(device=cuda_device),
+                                      prob.floating_mask(device="cpu"))
+
+
+@pytest.mark.parametrize("gluing,its", [("nonred", 16), ("full", 9), ("orth", 9)])
+def test_ex71_reference_counts_on_card(cuda_device, gluing, its):
+    """ex71's oracles on the card, every B / B' on the gather kernel; the
+    plain version gives the same count and a bitwise equal x_global."""
+    from permon_tpu_torch.feti.solve import feti_solve
+    from permon_tpu_torch.problems import build_ex71
+
+    prob = build_ex71()
+    runs = []
+    for gk in (None, False):
+        gather_apply.launches = 0
+        res = feti_solve(prob, FetiOptions(gluing=gluing, gather_kernel=gk), device=cuda_device)
+        runs.append((res, gather_apply.launches))
+    (rk, nk), (rp, np_) = runs
+    assert rk.result.reason == 2 and rk.result.iterations == its
+    assert nk > 0 and np_ == 0
+    assert rp.result.iterations == its
+    np.testing.assert_array_equal(rk.x_global, rp.x_global)
+
+
+def test_ex1_and_contact_on_card(cuda_device):
+    from permon_tpu_torch.feti.solve import feti_solve
+    from permon_tpu_torch.problems import build_feti_contact, build_feti_ex1
+
+    for by_B in (True, False):
+        res = feti_solve(build_feti_ex1(4, 7), FetiOptions(dirichlet_by_B=by_B),
+                         device=cuda_device)
+        assert res.result.reason == 2 and res.result.iterations == 1
+    prob, BI, cI, lb = build_feti_contact(4, 25)
+    res = feti_solve(prob, FetiOptions(gluing="nonred"), tol=Tolerances(rtol=1e-8),
+                     BI=BI, cI=cI, device=cuda_device)
+    ref = feti_solve(prob, FetiOptions(gluing="nonred"), tol=Tolerances(rtol=1e-8),
+                     BI=BI, cI=cI, device="cpu")
+    assert res.result.reason == 2
+    assert (res.result.iterations, res.result.inner_iterations) == (
+        ref.result.iterations, ref.result.inner_iterations)
+    np.testing.assert_allclose(res.x_global, ref.x_global, rtol=0, atol=1e-9)

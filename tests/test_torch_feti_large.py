@@ -114,7 +114,7 @@ def test_full_gluing_solves(prob):
 
 @pytest.mark.parametrize("opts,match", [
     (dict(qppf_redundancy=True), "ROADMAP"),
-    (dict(mesh=object()), "ROADMAP"), (dict(gluing="orth"), "ROADMAP"),
+    (dict(mesh=object()), "ROADMAP"), (dict(coarse="redundant"), "ROADMAP"),
     # rejected by the JAX package itself on the large path, in its words
     (dict(project=False), "project=False"), (dict(throughput=True), "throughput=True"),
     (dict(orth_G="gs"), "orth_G on the large path"),
@@ -122,6 +122,15 @@ def test_full_gluing_solves(prob):
 def test_options_outside_the_slice_raise(prob, opts, match):
     with pytest.raises(NotImplementedError, match=match):
         feti_solve_sparse(prob, FetiOptions(**{"gluing": "nonred", **opts}), device="cpu")
+
+
+def test_orth_gluing_on_the_large_path(prob):
+    """gluing='orth' (ported with the dense path) solves on the large path
+    too, to the solution of the nonredundant gluing."""
+    res = feti_solve_sparse(prob, FetiOptions(gluing="orth"), tol=Tolerances(rtol=1e-7),
+                            device="cpu")
+    assert res.result.reason == 2
+    assert _resid(CELLS, res.x_global) < 1e-6
 
 
 @pytest.fixture(scope="module")
