@@ -115,7 +115,28 @@ Phases:
    make_inv: a dense Cholesky on the card) -> MPRGP at rtol 1e-12 -> post:
    reason 2, x >= obstacle - 1e-10 ||obstacle||, the primal KKT on the host;
    and solve(qp, 'pcpg') with 8 equality rows, cE != 0 and M = make_inv(A):
-   BE x = cE to 1e-10.
+   BE x = cE to 1e-10;
+12. the dense TFETI path (FetiSolver on a FetiProblem): (a) ex71 Poisson at
+   262,144 dofs in 512 subdomains, (b) ex71 elasticity at 98,304 dofs
+   (nonred, rigid body modes, lumped and none), (c) the reference
+   tutorials' configurations, contact and the MATIS entry;
+13. the leaf path (FetiOptions(throughput=True): explicit K+ inverses,
+   dense extension blocks, the scaled-leaf dual iteration with its partner
+   combine, restrict and lift tables on the gather kernel): (a) 12a's
+   problem: reason 2, the count of 12a within LEAF_ROW_BAND, x_global
+   within 1e-4 of 12a's, the residual under 12a's limit, the leaf F apply,
+   the explicit-inverse GEMV and the leaf projector beside their bounds,
+   the three tables beside the plain version and torch.mv on their CSR,
+   the plain gather version bitwise equal, 'mixed' within its band; (b)
+   12b's problem, lumped and none, counts within LEAF_ELASTIC_BAND of 12b's;
+   (c) contact through prepare_contact_children + smalxe, row f64, leaf f64
+   (equal counts) and leaf 'mixed', x against the serial solution; (d) the
+   user side: solve_from_options on phase 7's QP (equal count, on
+   sell_mv), a Timer around 13a's leaf operator (its count = cg's nmv),
+   FetiSolver.save / load (a bitwise equal re-solve), SVC linear and rbf
+   on data of a9a's shape (123 binary features; the rows cut to
+   SVM_LINEAR_N / SVM_RBF_N, see there): reason 2, 0 <= alpha <= C,
+   |y'alpha| under SMALXE's equality tolerance.
 
 Every phase raises on failure (exit code != 0).  The line before the last
 is the kernel JSON record (``ms``: one launch between two events with a
@@ -127,7 +148,8 @@ kernel's device time by the profiler; ``floor_ms``: what ``ms`` reads for a
 way), the last line {"ok": true,
 "device": ...}.  Development options, none of which prints the result lines:
 ``--kernels-only`` stops after phase 4; ``--only=9,10`` runs phases 1, 2
-and the named ones of 9, 9c, 9t, 10, 11 (11 after phase 7), 11c (the ex3
+and the named ones of 9, 9c, 9t, 10, 11 (11 after phase 7), 12, 12c, 13
+(with the row-path solves of 12a / 12b and phase 7 it compares with), 11c (the ex3
 branch alone at the sizes of ``--ex3-n=4096,8192``), 11l (L-BFGS-B alone
 on the grids of ``--blmvm-grids=96,128,192``, beside scipy's own cost).  9c is SMALBE proper
 (project=False, rtol_E 0.1) on elastic contact at 361,416 dofs against its
@@ -238,6 +260,26 @@ def gather_table_work(tab, x, out):
     nbytes = (_nbytes(tab.idx, tab.vals, tab.ov_idx, tab.ov_vals, tab.ov_mark, out)
               + min(32 * slots, _nbytes(x)))
     return nbytes, 2 * slots
+
+
+def gather_table_csr(tab):
+    """The scipy CSR matrix (nrows, n_src) of a gather table's entries, its
+    overflow planes included: the library call computing the same function
+    is torch.mv on it (a weighted plane gather is an SpMV).  Entries of one
+    (row, source) are summed."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    w, nrows = tab.idx.shape
+    rows = [np.broadcast_to(np.arange(nrows), (w, nrows))]
+    cols, vals = [tab.idx.cpu().numpy()], [tab.vals.double().cpu().numpy()]
+    if tab.ov_tgt is not None:
+        rows.append(np.broadcast_to(tab.ov_tgt.cpu().numpy(), tab.ov_idx.shape))
+        cols.append(tab.ov_idx.cpu().numpy())
+        vals.append(tab.ov_vals.double().cpu().numpy())
+    r, c, v = (np.concatenate([a.reshape(-1) for a in arrs]) for arrs in (rows, cols, vals))
+    live = c < tab.n_src
+    return sp.csr_matrix((v[live], (r[live], c[live])), shape=(nrows, tab.n_src))
 
 
 def turns_ms(fns, flush, reps=20, clean=False):
@@ -436,6 +478,8 @@ def phase_kernel(prob, eprob, eBI, dev):
                 "read, not rewritten: " + ", ".join(f"{k} {v[0]:.4f} ms" for k, v in tc.items()))
             call_ms = cuda_ms(lambda: tab.apply(xt))
             plain_ms = cuda_ms(lambda: plain.apply(xt), reps=5, warmup=1, flush=flush)
+            lib_ms, lib_y = library_spmv_ms(gather_table_csr(tab), xt, flush)
+            lib_err = float((lib_y - got).abs().max() / got.abs().max().clamp(min=1e-300))
             nbytes, flops = gather_table_work(tab, xt, got)
             b_ms, b_by = bound_ms(nbytes, flops, str(xdt)[6:])
             log(f"[kernel] {key}: kernel = plain = replaced kernel, bitwise; one launch, cold "
@@ -444,13 +488,14 @@ def phase_kernel(prob, eprob, eBI, dev):
                 + (f": table {t['v1 table'][0]:.4f}, overflow {t['v1 overflow'][0]:.4f}"
                    if len(old) == 2 else "")
                 + f"); call period back to back {call_ms:.4f} ms; plain {plain_ms:.4f} ms; "
-                f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB, bound / new "
-                f"{b_ms / t['new'][0]:.2f})")
+                f"library (torch.mv on the CSR of the same entries) {lib_ms:.4f} ms, relative "
+                f"difference {lib_err:.1e}; bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB, "
+                f"bound / new {b_ms / t['new'][0]:.2f})")
             if name == "B'" and vdt == f64:  # the largest table of the main path
                 record = dict(ms=t["new"][0], v1_ms=t["v1"][0], call_ms=call_ms,
                               kernel_only_ms=k_new, v1_kernel_only_ms=k_old,
                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                              library_ms=None)  # no one PyTorch call is the weighted plane gather
+                              library_ms=lib_ms)
     record["max_abs_err"] = max_err
     return record
 
@@ -1208,11 +1253,12 @@ def matis_residual(prob, x):
     return float(np.linalg.norm(Ax - b) / np.linalg.norm(b))
 
 
-def dense_tables_timed(tables, dev):
-    """Phase 12a's gather tables through the kernel: bitwise against the
-    plain version, then one launch with a cold L2 (CUDA events), the
-    kernel alone (profiler), the call period, the plain version and the
-    bound, in f64."""
+def dense_tables_timed(tables, dev, tag="dense"):
+    """Gather tables of phases 12a / 13a through the kernel: bitwise against
+    the plain version, then one launch with a cold L2 (CUDA events), the
+    kernel alone (profiler), the call period, the plain version, the
+    library call (torch.mv on the CSR of the same entries) and the bound,
+    in the table's dtype."""
     import numpy as np
     import torch
 
@@ -1221,7 +1267,7 @@ def dense_tables_timed(tables, dev):
     flush = torch.empty(1 << 28, dtype=torch.uint8, device=dev)
     rng = np.random.RandomState(12)
     for name, tab in tables.items():
-        xt = torch.as_tensor(rng.standard_normal(tab.n_src), device=dev)
+        xt = torch.as_tensor(rng.standard_normal(tab.n_src), dtype=tab.vals.dtype, device=dev)
         plain = tab.replace(kernel=False)
         n0 = gather_apply.launches
         got, ref = tab.apply(xt), plain.apply(xt)
@@ -1233,19 +1279,24 @@ def dense_tables_timed(tables, dev):
         k = kernel_only_ms(new[0], flush)
         call = cuda_ms(lambda: tab.apply(xt))
         plain_ms = cuda_ms(lambda: plain.apply(xt), reps=5, warmup=1, flush=flush)
+        lib_ms, lib_y = library_spmv_ms(gather_table_csr(tab), xt, flush)
+        lib_err = float((lib_y - got).abs().max() / got.abs().max().clamp(min=1e-300))
         nbytes, flops = gather_table_work(tab, xt, got)
-        b_ms, b_by = bound_ms(nbytes, flops)
-        log(f"[dense] table {name}: {tuple(tab.idx.shape)}"
+        b_ms, b_by = bound_ms(nbytes, flops, str(tab.vals.dtype)[6:])
+        log(f"[{tag}] table {name}: {tuple(tab.idx.shape)} {str(tab.vals.dtype)[6:]}"
             + ("" if tab.ov_idx is None else f" + overflow {tuple(tab.ov_idx.shape)}")
             + f", kernel = plain bitwise; one launch, cold L2 {t:.4f} ms, kernel alone "
-            f"{fmt_ms(k)}, call period {call:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{fmt_ms(k)}, call period {call:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"(torch.mv on the CSR) {lib_ms:.4f} ms (relative difference {lib_err:.1e}), bound "
             f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB)")
 
 
 def phase_dense(dev):
     """12: the dense TFETI path (feti_solve / FetiSolver on a FetiProblem,
     all_in_one, the MATIS entry), every B / B' / copy sum on the gather
-    kernel.  Returns the gather_apply launches of 12a and 12b."""
+    kernel.  Returns the gather_apply launches of 12a and 12b, and the row
+    results that phase 13 holds the leaf path against ("12a": prob,
+    x_global, iterations, ms per iteration; ("12b", pc): iterations, ms)."""
     import dataclasses
 
     import numpy as np
@@ -1258,7 +1309,7 @@ def phase_dense(dev):
     from permon_tpu_torch.problems import build_ex71
 
     tol = Tolerances(rtol=1e-5)
-    launches = 0
+    launches, rows = 0, {}
 
     # -- 12a: 3-D Poisson at 262,144 dofs, FetiOptions() defaults ----------
     cells, grid = DENSE_POISSON
@@ -1305,6 +1356,7 @@ def phase_dense(dev):
         raise AssertionError("12a: a solve did not reach reason 2")
     if not resid <= DENSE_RESID_LIMIT["poisson"] or not lin <= 1e-6 or n_a <= 0:
         raise AssertionError(f"12a: residual {resid}, linearity {lin}, launches {n_a}")
+    rows["12a"] = dict(prob=prob, x=r1.x_global, its=its, ms_per_it=1e3 * t_warm / max(its, 1))
 
     # one K+ apply against its bound: the lower triangles read twice
     v = qp.BE.rmv(torch.as_tensor(np.random.RandomState(1).standard_normal(qp.BE.shape[0]),
@@ -1371,6 +1423,8 @@ def phase_dense(dev):
         if r.result.reason != 2 or not resid <= DENSE_RESID_LIMIT["elasticity"] or \
                 not lin <= 1e-6:
             raise AssertionError(f"12b {pc}: reason {r.result.reason}, residual {resid}")
+        rows["12b", pc] = dict(its=r.result.iterations,
+                               ms_per_it=1e3 * (t2 - t1) / max(rw.result.iterations, 1))
     n_b = gather_apply.launches
     launches += n_b
     log(f"[dense] 12b gather_apply launches {n_b}")
@@ -1379,7 +1433,7 @@ def phase_dense(dev):
     del solver, r, rw
     torch.cuda.empty_cache()
     phase_dense_reference(dev)
-    return launches
+    return launches, rows
 
 
 def phase_dense_reference(dev):
@@ -1465,6 +1519,434 @@ def phase_dense_reference(dev):
             f"{np.abs(x_post - rm.x_global).max():.1e}")
         if rm.result.iterations != rd.result.iterations or not same:
             raise AssertionError("12c: the MATIS entry differs from the FetiProblem entry")
+
+
+#: phase 13: 'mixed' leaf counts within this many iterations of f64
+#: (tests/test_precision.py:142-160), and the f64 leaf count within this many
+#: of the row path's on the card (equal on the CPU: tests/test_torch_leaf.py;
+#: the explicit-inverse GEMV rounds differently from the triangular solves)
+LEAF_MIXED_BAND, LEAF_ROW_BAND = 4, 1
+#: 13a: 'mixed' x within this much of max |x_f64| (tests/test_precision.py
+#: holds 5e-4 absolute at max |x| = 48.5)
+LEAF_MIXED_DX = 1e-5
+#: 13b: the elasticity counts within this many of 12b's (the band of the
+#: elasticity counts across devices, tests/test_torch_feti_dense_elastic.py)
+LEAF_ELASTIC_BAND = 2
+#: 13c: the 1-D obstacle on 16 subdomains of 64 elements (bench.py:324-380);
+#: there the row and leaf counts differ in both packages (JAX, CPU: 134 / 300
+#: against 135 / 316 outer / inner), so the equal counts are held on the
+#: tests' 4 x 25
+LEAF_CONTACT = (16, 64)
+#: 13c: 'mixed' (rtol 1e-6) x within this of the serial solution: the f64 dual
+#: stopped at rtol 1e-6 leaves 4.2e-4 there, the f32 state 7.8e-4 (CPU)
+LEAF_CONTACT_MIXED_DX = 2e-3
+#: 13d: SVC on data of the shape of LIBSVM's a9a (32,561 x 123), linear and
+#: rbf on its first rows.  Cut: SMALXE's inner MPRGP has a 10,000-iteration
+#: budget, which the linear fit reaches from ~4,000 rows on (the expansion
+#: step is ~1 / ||Q||, and ||Q|| grows with n: 32,561 rows on an H100 gave
+#: reason -5 after 1 outer / 10,001 inner; n = 4,096 on the CPU 5 / 10,001 in
+#: both packages), so the linear fit takes 32,561 halved four times; the rbf
+#: fit needs ~2 inner iterations a row (7,981 at 4,096): 8,192 halved once
+SVM_A9A = (32561, 123)
+SVM_LINEAR_N = 32561 // 16
+SVM_RBF_N = 4096
+#: 13d: FetiSolver.save / load of this ex71 Poisson solver
+CKPT_POISSON = ((31,) * 3, (4,) * 3)
+
+
+def leaf_apply_work(op):
+    """Bytes and flops of one leaf F apply: blk read twice and the explicit
+    inverses once (the two batched products against blk, the batched GEMV),
+    the (ns, k) input and output and the (ns, nl) intermediates once."""
+    ns, k, nl = op.blk.shape
+    es = op.blk.element_size()
+    nbytes = 2 * _nbytes(op.blk) + _nbytes(op.invs) + es * (2 * ns * k + 2 * ns * nl)
+    return nbytes, 4 * ns * k * nl + 2 * ns * nl * nl
+
+
+def row_poisson_12a(dev, tol):
+    """12a's row-path solve, for ``--only=13`` (the default run takes it
+    from phase 12)."""
+    import torch
+
+    from permon_tpu_torch.feti.solve import FetiOptions, FetiSolver
+    from permon_tpu_torch.problems import build_ex71
+
+    prob = build_ex71(*DENSE_POISSON)
+    solver = FetiSolver(prob, FetiOptions(), device=dev)
+    r = solver.solve(tol=tol)
+    rw, t = timed_call(lambda: solver.solve(b_loc=1.5 * prob.b_loc, tol=tol))
+    out = dict(prob=prob, x=r.x_global, its=r.result.iterations,
+               ms_per_it=1e3 * t / max(rw.result.iterations, 1))
+    del solver, r, rw
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_leaf(dev, rows=None, jb_rcm=None, qp_its=None):
+    """13: the leaf path (FetiOptions(throughput=True): explicit K+
+    inverses, dense extension blocks, the dual iteration in the scaled-leaf
+    space with its partner combine on the gather kernel) and the user-side
+    modules, against phase 12's ``rows`` and phase 7's ``jb_rcm`` /
+    ``qp_its`` (made here when not given).  Returns (gather_apply launches,
+    sell_mv launches)."""
+    rows = {} if rows is None else rows
+    launches, leaf_13a = phase_leaf_poisson(dev, rows.get("12a"))
+    launches += phase_leaf_elastic(dev, rows)
+    launches += phase_leaf_contact(dev)
+    g, sell_launches = phase_user(dev, jb_rcm, qp_its, leaf_13a)
+    return launches + g, sell_launches
+
+
+def phase_leaf_poisson(dev, row=None):
+    """13a: 12a's problem (ex71 (63,)^3 on (8,)^3, 262,144 dofs, full
+    gluing) on the leaf path, against 12a's ``row`` result.  Returns the
+    launches and (solver, first result, tol) for 13d's Timer."""
+    import numpy as np
+    import torch
+
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.core.sell import gather_apply
+    from permon_tpu_torch.feti.solve import FetiOptions, FetiSolver, _feti_solve_impl
+
+    tol = Tolerances(rtol=1e-5)
+    row = row or row_poisson_12a(dev, tol)
+    prob = row["prob"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    gather_apply.launches = 0
+    solver, t_setup = timed_call(lambda: FetiSolver(prob, FetiOptions(throughput=True),
+                                                    device=dev))
+    r1, t_first = timed_call(lambda: solver.solve(tol=tol))
+    warm = []
+    for c in (1.5, 0.5, 2.0):
+        rw, t = timed_call(lambda: solver.solve(b_loc=c * prob.b_loc, tol=tol))
+        warm.append((t, c, rw))
+    n_a = gather_apply.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    t_warm = sorted(w[0] for w in warm)[1]
+    its = r1.result.iterations
+    resid = matis_residual(prob, r1.x_global)
+    xs = np.abs(row["x"]).max()
+    dx = float(np.abs(r1.x_global - row["x"]).max() / xs)
+    lin = max(np.abs(rw.x_global - c * r1.x_global).max() for _, c, rw in warm) / \
+        np.abs(r1.x_global).max()
+    leaf = solver._leaf["leaf"]
+    op, sls = leaf.A.op, leaf.A.sp
+    log(f"[leaf] 13a ex71 {DENSE_POISSON[0]} on {DENSE_POISSON[1]}: {prob.n_global} dofs, "
+        f"leaves {tuple(sls.s.shape)} ({sls.nleaf} flat), deg_max {op.space.comb.idx.shape[0]}, "
+        f"blk {tuple(op.blk.shape)} {_nbytes(op.blk) / 1e9:.2f} GB, inverses "
+        f"{_nbytes(op.invs) / 1e9:.2f} GB, Gl {tuple(leaf.BE.Gl.shape)} "
+        f"{_nbytes(leaf.BE.Gl) / 1e9:.2f} GB; FetiSolver (assembly, blocks, explicit K+) "
+        f"{t_setup:.3f} s")
+    log(f"[leaf] 13a first solve {t_first:.3f} s (leaf operators built in it), reason "
+        f"{r1.result.reason}, {its} dual CG iterations (12a row path: {row['its']}); warm "
+        f"re-solves {', '.join(f'{w[0]:.3f}' for w in warm)} s (median {t_warm:.3f} s, "
+        f"iterations {[w[2].result.iterations for w in warm]}); {1e3 * t_warm / max(its, 1):.3f} "
+        f"ms per dual iteration (12a row path: {row['ms_per_it']:.3f})")
+    log(f"[leaf] 13a assembled residual {resid:.3e} (limit {DENSE_RESID_LIMIT['poisson']:.1e}); "
+        f"max |x - x_12a| / max |x_12a| {dx:.3e} (limit 1e-4); linearity {lin:.3e}; peak device "
+        f"memory {peak / 2**30:.3f} GiB; gather_apply launches {n_a}")
+    if r1.result.reason != 2 or any(w[2].result.reason != 2 for w in warm):
+        raise AssertionError("13a: a solve did not reach reason 2")
+    if abs(its - row["its"]) > LEAF_ROW_BAND or not resid <= DENSE_RESID_LIMIT["poisson"] \
+            or not dx <= 1e-4 or not lin <= 1e-6 or n_a <= 0:
+        raise AssertionError(f"13a: {its} iterations against {row['its']}, residual {resid}, "
+                             f"dx {dx}, linearity {lin}, launches {n_a}")
+
+    # the parts of an iteration against their bounds
+    rng = np.random.RandomState(13)
+    Lam = sls.space.lift(torch.as_tensor(rng.standard_normal(sls.space.m_dual), device=dev))
+    xt = (Lam * sls.s).reshape(-1)
+    u = torch.as_tensor(rng.standard_normal(op.invs.shape[:2] + (1,)), device=dev)
+    G = leaf.BE.scaled_rows(torch.float64)
+    parts = {
+        "leaf F apply": (lambda: op.apply(Lam), leaf_apply_work(op)),
+        "explicit K+ GEMV": (lambda: torch.bmm(op.invs, u),
+                             (_nbytes(op.invs) + 2 * _nbytes(u), 2 * op.invs.numel())),
+        "P (LeafG, mv + rmv)": (lambda: leaf.pf.apply_p(xt),
+                                (_nbytes(G, leaf.BE.Gl) + 4 * _nbytes(xt),
+                                 2 * G.numel() + 2 * leaf.BE.Gl.numel())),
+    }
+    for name, (fn, (nbytes, flops)) in parts.items():
+        per = cuda_ms(fn, reps=5, warmup=1)
+        dev_t = device_ms(fn, reps=5)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        log(f"[leaf] 13a one {name}: period {per:.3f} ms, device {fmt_ms(dev_t)}, bound "
+            f"{b_ms:.3f} ms by {b_by} ({nbytes / 1e9:.2f} GB), bound / device "
+            f"{b_ms / dev_t if dev_t else float('nan'):.2f}")
+    profile_solve("leaf", lambda: solver.solve(b_loc=1.5 * prob.b_loc, tol=tol), warm[0][0])
+    sp_ = op.space
+    dense_tables_timed({"leaf combine": sp_.comb, "leaf restrict": sp_.restr,
+                        "leaf lift": sp_.lift_tab}, dev, tag="leaf")
+
+    # the same factors with every table through the plain version
+    n0 = gather_apply.launches
+    qp_plain = solver.qp.replace(BE=solver.qp.BE.with_kernel(False))
+    rp = _feti_solve_impl(prob, FetiOptions(throughput=True, gather_kernel=False), tol, qp_plain,
+                          solver.kplus, pf=solver._pf, leaf_cache={})
+    same = np.array_equal(rp.x_global, r1.x_global)
+    log(f"[leaf] 13a through the plain gather version: {rp.result.iterations} iterations, "
+        f"x_global bitwise equal {same}, kernel launches {gather_apply.launches - n0}")
+    if rp.result.iterations != its or not same or gather_apply.launches != n0:
+        raise AssertionError("13a: the plain gather version differs from the kernel")
+    del rp, qp_plain
+
+    # 'mixed': f32 leaf state with f64 dots, the projector and estimates f64
+    n0 = gather_apply.launches
+    opts_m = FetiOptions(throughput=True, precision="mixed")
+    rm, t_m1 = timed_call(lambda: _feti_solve_impl(prob, opts_m, tol, solver.qp, solver.kplus,
+                                                   pf=solver._pf, leaf_cache=solver._leaf))
+    rm2, t_m2 = timed_call(lambda: _feti_solve_impl(
+        prob, opts_m, tol, solver.qp.replace(b=1.5 * solver.qp.b), solver.kplus, pf=solver._pf,
+        leaf_cache=solver._leaf))
+    n_m = gather_apply.launches - n0
+    dxm = float(np.abs(rm.x_global - r1.x_global).max() / np.abs(r1.x_global).max())
+    log(f"[leaf] 13a precision='mixed': reason {rm.result.reason}, {rm.result.iterations} "
+        f"iterations (f64: {its}, band {LEAF_MIXED_BAND}), max |x - x_f64| / max |x_f64| "
+        f"{dxm:.3e} (limit {LEAF_MIXED_DX:.0e}), first {t_m1:.3f} s (f32 copies "
+        f"made), warm {t_m2:.3f} s ({1e3 * t_m2 / max(rm2.result.iterations, 1):.3f} ms per "
+        f"iteration), gather_apply launches {n_m}")
+    if rm.result.reason != 2 or abs(rm.result.iterations - its) > LEAF_MIXED_BAND \
+            or not dxm <= LEAF_MIXED_DX:
+        raise AssertionError(f"13a mixed: reason {rm.result.reason}, {rm.result.iterations} "
+                             f"iterations, dx {dxm}")
+    # the main path's launches: the solves (not the timings, which compare
+    # with the plain version and the library)
+    return n_a + n_m, (solver, r1, tol)
+
+
+def phase_leaf_elastic(dev, rows):
+    """13b: 12b's elasticity problem on the leaf path (nonred, rbm, lumped
+    and none), against 12b's counts in ``rows`` (made here when missing)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.core.sell import gather_apply
+    from permon_tpu_torch.feti.solve import FetiOptions, FetiSolver
+    from permon_tpu_torch.problems import build_ex71
+
+    tol = Tolerances(rtol=1e-5)
+    prob = build_ex71(*DENSE_ELASTICITY, pde="elasticity")
+    base = FetiOptions(gluing="nonred", nullspace="rbm", pc_dual="lumped")
+    if ("12b", "lumped") not in rows:  # --only=13: 12b's counts first
+        row = FetiSolver(prob, base, device=dev)
+        for pc in ("lumped", "none"):
+            row.opts = dataclasses.replace(row.opts, pc_dual=pc)
+            rows["12b", pc] = dict(its=row.solve(tol=tol).result.iterations,
+                                   ms_per_it=float("nan"))
+        del row
+        torch.cuda.empty_cache()
+    gather_apply.launches = 0
+    solver, t_setup = timed_call(lambda: FetiSolver(
+        prob, dataclasses.replace(base, throughput=True), device=dev))
+    for pc in ("lumped", "none"):
+        solver.opts = dataclasses.replace(solver.opts, pc_dual=pc)
+        r, t1 = timed_call(lambda: solver.solve(tol=tol))
+        rw, t2 = timed_call(lambda: solver.solve(b_loc=2.0 * prob.b_loc, tol=tol))
+        resid = matis_residual(prob, r.x_global)
+        lin = np.abs(rw.x_global - 2.0 * r.x_global).max() / np.abs(r.x_global).max()
+        row = rows["12b", pc]
+        log(f"[leaf] 13b elasticity {DENSE_ELASTICITY[0]} on {DENSE_ELASTICITY[1]} pc_dual={pc}: "
+            f"reason {r.result.reason}, {r.result.iterations} iterations (12b row path: "
+            f"{row['its']}), first solve {t1:.3f} s, warm {t2:.3f} s "
+            f"({1e3 * t2 / max(rw.result.iterations, 1):.3f} ms per iteration; 12b row path "
+            f"{row['ms_per_it']:.3f}), assembled residual {resid:.3e} (limit "
+            f"{DENSE_RESID_LIMIT['elasticity']:.1e}), linearity {lin:.3e}; FetiSolver "
+            f"{t_setup:.3f} s")
+        if r.result.reason != 2 or abs(r.result.iterations - row["its"]) > LEAF_ELASTIC_BAND \
+                or not resid <= DENSE_RESID_LIMIT["elasticity"] or not lin <= 1e-6:
+            raise AssertionError(f"13b {pc}: reason {r.result.reason}, "
+                                 f"{r.result.iterations} iterations, residual {resid}")
+    n_b = gather_apply.launches
+    log(f"[leaf] 13b gather_apply launches {n_b}")
+    if n_b <= 0:
+        raise AssertionError("13b: the gather kernel was never launched")
+    del solver, r, rw
+    torch.cuda.empty_cache()
+    return n_b
+
+
+def phase_leaf_contact(dev):
+    """13c: contact on the leaf path: (i) the pins of tests/test_leafqp.py
+    (4 x 25 elements, projected and project=False): leaf counts equal to
+    the row path's; (ii) bench.py:324-380's configuration (16 x 64, the
+    default rtol) through prepare_contact_children + smalxe, row f64, leaf
+    f64 and leaf 'mixed', f64 against feti_solve; (iii) x against the serial
+    solution."""
+    import numpy as np
+
+    import permon_tpu_torch as pt
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.core.sell import gather_apply
+    from permon_tpu_torch.feti.solve import FetiOptions, feti_solve, prepare_contact_children
+    from permon_tpu_torch.problems import build_ex1, build_feti_contact
+    from permon_tpu_torch.solvers.smalxe import smalxe
+    from permon_tpu_torch.viewers import view_convergence_smalxe
+
+    def counts(r):
+        return (r.reason, r.iterations, r.inner_iterations)
+
+    gather_apply.launches = 0
+    prob, BI, cI, lb = build_feti_contact(4, 25)
+    for project in (True, False):
+        row, leaf = (feti_solve(prob, FetiOptions(gluing="nonred", project=project,
+                                                  throughput=thr), BI=BI, cI=cI, device=dev)
+                     for thr in (False, True))
+        log(f"[leaf] 13c contact 4 x 25, project={project}: row {counts(row.result)}, leaf "
+            f"{counts(leaf.result)} (equal on the CPU, in both packages)")
+        if counts(row.result) != counts(leaf.result) or row.result.reason != 2:
+            raise AssertionError(f"13c 4 x 25 project={project}: row and leaf counts differ")
+
+    prob, BI, cI, lb = build_feti_contact(*LEAF_CONTACT)
+    res_leaf = None
+    for name, opts in (("row f64", FetiOptions(gluing="nonred")),
+                       ("leaf f64", FetiOptions(gluing="nonred", throughput=True)),
+                       ("leaf mixed", FetiOptions(gluing="nonred", throughput=True,
+                                                  precision="mixed"))):
+        qp, sm, sls = prepare_contact_children(prob, opts, BI, cI, device=dev)
+        res, t = timed_call(lambda: smalxe(qp, opts=sm))
+        log(f"[leaf] 13c contact {prob.ns} x {prob.nl - 1} elements, {name}: smalxe on "
+            f"prepare_contact_children {t:.3f} s, reason / outer / inner {counts(res)}"
+            + ("" if sls is None else f"; state {str(qp.b.dtype)[6:]}, dots {qp.dots_dtype}"))
+        if res.reason != 2:
+            raise AssertionError(f"13c {name}: reason {res.reason}")
+        if opts.precision == "f64":
+            # the same iteration as feti_solve (solve.py:567-623); under
+            # 'mixed' the f32 state is projected after its cast in feti_solve
+            # and before it here (as in the JAX package)
+            r = feti_solve(prob, opts, BI=BI, cI=cI, device=dev)
+            if counts(r.result) != counts(res):
+                raise AssertionError(f"13c {name}: prepare_contact_children + smalxe gave "
+                                     f"{counts(res)}, feti_solve {counts(r.result)}")
+        if name == "leaf f64":
+            res_leaf = res
+    log("[leaf] 13c view_convergence_smalxe of the leaf f64 solve:\n"
+        + view_convergence_smalxe(res_leaf))
+
+    A, b, lbv = build_ex1(prob.n_global)
+    ref = pt.solve(pt.QP.create(A, b, lb=lbv, device=dev), tol=Tolerances(rtol=1e-10)).x
+    ref = ref.cpu().numpy()
+    for name, opts, rtol, limit in (
+            ("leaf f64", FetiOptions(gluing="nonred", throughput=True), 1e-9, 1e-6),
+            ("leaf mixed", FetiOptions(gluing="nonred", throughput=True, precision="mixed"),
+             1e-6, LEAF_CONTACT_MIXED_DX)):
+        r = feti_solve(prob, opts, tol=Tolerances(rtol=rtol), BI=BI, cI=cI, device=dev)
+        err = float(np.abs(r.x_global - ref).max())
+        low = float((r.x_global - lb).min())
+        log(f"[leaf] 13c {name} at rtol {rtol:.0e}: {counts(r.result)}, max |x - x_serial| "
+            f"{err:.3e} (limit {limit:.0e}), least x - lb {low:.3e} (limit -5e-4), "
+            f"{int((r.x_global - lb < 1e-8).sum())} active")
+        if r.result.reason != 2 or not err <= limit or not low >= -5e-4:
+            raise AssertionError(f"13c {name}: reason {r.result.reason}, error {err}")
+    log(f"[leaf] 13c gather_apply launches {gather_apply.launches}")
+    if gather_apply.launches <= 0:
+        raise AssertionError("13c: the gather kernel was never launched")
+    return gather_apply.launches
+
+
+def phase_user(dev, jb_rcm=None, qp_its=None, leaf_13a=None):
+    """13d: the user side: solve_from_options on phase 7's QP, a Timer on
+    13a's leaf operator (``leaf_13a``: its solver, first result and tol),
+    FetiSolver.save / load, SVC."""
+    import numpy as np
+    import torch
+
+    import permon_tpu_torch as pt
+    from permon_tpu_torch.core.sell import gather_apply, sell_mv
+    from permon_tpu_torch.feti.leafqp import leaf_dual_qp
+    from permon_tpu_torch.feti.solve import FetiOptions, FetiSolver
+    from permon_tpu_torch.problems import build_ex71, build_jbearing, make_a9a_like, rcm_permuted
+    from permon_tpu_torch.qp.transforms import enforce_eq_by_projector, homogenize_eq
+    from permon_tpu_torch.solvers.cg import cg
+    from permon_tpu_torch.svm import SVC
+    from permon_tpu_torch.sys import tracing
+    from permon_tpu_torch.utils import checkpoint
+
+    gather_apply.launches = 0
+    # solve_from_options on the QP of phase 7
+    if jb_rcm is None:
+        jb_rcm = rcm_permuted(*build_jbearing(*JBEARING))
+    Ap, bp, lbp, ubp, _ = jb_rcm
+    opts = pt.Options.from_args(["-qps_type", "mprgp", "-qps_rtol", "1e-6"], rc=False)
+    qp = pt.QP.create(Ap, bp, lb=lbp, ub=ubp, device=dev)
+    if qp_its is None:  # --only=13: phase 7's solve
+        qp_its = pt.solve(qp, tol=pt.Tolerances(rtol=1e-6, atol=1e-8)).iterations
+    sell_mv.launches = 0
+    res, t = timed_call(lambda: pt.solve_from_options(qp, opts))
+    n_sell = sell_mv.launches
+    log(f"[user] 13d solve_from_options({opts.db}) on the jbearing {JBEARING} QP: reason "
+        f"{res.reason}, {res.iterations} iterations (phase 7: {qp_its}), {t:.3f} s, sell_mv "
+        f"launches {n_sell} (Hessian products {res.nmv})")
+    if res.reason != 2 or res.iterations != qp_its or n_sell < res.nmv:
+        raise AssertionError(f"13d options: reason {res.reason}, {res.iterations} iterations")
+    del qp, res
+
+    # a Timer around 13a's leaf operator, driven by cg on the leaf QP
+    if leaf_13a is not None:
+        solver, r1, tol = leaf_13a
+        leaf_13a = None
+        lq, _ = leaf_dual_qp(r1.dual_qp, None, None, reuse=solver._leaf["leaf"])
+        lq = lq.replace(A=pt.Timer(inner=lq.A, name="leaf_F"))
+        lq, _ = homogenize_eq(lq)
+        lq, _ = enforce_eq_by_projector(lq)
+        tracing.reset()
+        with tracing.trace("leaf cg"):
+            rc = cg(lq, tol=tol)
+            torch.cuda.synchronize()
+        n_t = tracing.op_counts[("leaf_F", "mv")]
+        log(f"[user] 13d Timer around the leaf operator: cg on the leaf QP of leaf_dual_qp, "
+            f"reason {rc.reason}, {rc.iterations} iterations (13a: {r1.result.iterations}), "
+            f"nmv {rc.nmv}, Timer count {n_t}; tracing.event_report():\n"
+            + tracing.event_report())
+        if n_t != rc.nmv or rc.reason != 2:
+            raise AssertionError(f"13d Timer: {n_t} applications against nmv {rc.nmv}")
+        del solver, r1, lq, rc
+        torch.cuda.empty_cache()
+
+    # FetiSolver.save / checkpoint.load
+    prob = build_ex71(*CKPT_POISSON)
+    opts = FetiOptions(gluing="nonred")
+    solver = FetiSolver(prob, opts, device=dev)
+    solver.solve()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_checkpoint.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    _, t_save = timed_call(lambda: solver.save(path))
+    loaded, t_load = timed_call(lambda: FetiSolver.load(path, prob, opts, device=dev))
+    b_new = 0.5 * prob.b_loc + 0.1
+    live, again = solver.solve(b_loc=b_new), loaded.solve(b_loc=b_new)
+    same = np.array_equal(live.x_global, again.x_global)
+    log(f"[user] 13d FetiSolver.save / load of ex71 {CKPT_POISSON[0]} on {CKPT_POISSON[1]}: "
+        f"{os.path.getsize(path) / 1e6:.1f} MB, save {t_save:.3f} s, load {t_load:.3f} s; a new "
+        f"load: {again.result.iterations} iterations (live {live.result.iterations}), x_global "
+        f"bitwise equal {same}")
+    os.remove(path)
+    if not same or again.result.iterations != live.result.iterations:
+        raise AssertionError("13d: the loaded solver differs from the live one")
+    del solver, loaded, live, again
+
+    # SVC on data of the shape of a9a, linear; rbf on its first rows
+    X, y = make_a9a_like(*SVM_A9A)
+    for kernel, n in (("linear", SVM_LINEAR_N), ("rbf", SVM_RBF_N)):
+        clf, t = timed_call(lambda: SVC(kernel=kernel, C=1.0, device=dev).fit(X[:n], y[:n]))
+        r, a = clf.result_, clf.alpha_
+        ya = abs(float(a @ y[:n]))
+        eq_tol = clf.rtol * np.sqrt(n)  # rtol_E ||b|| with b = ones: where SMALXE stops
+        score = clf.score(X[:n], y[:n])
+        log(f"[user] 13d SVC(kernel={kernel!r}) on {n} x {X.shape[1]}: fit {t:.3f} s, reason "
+            f"{r.reason}, SMALXE {r.iterations} outer / {r.inner_iterations} inner iterations, "
+            f"{len(clf.support_)} support vectors, alpha in [{a.min():.3e}, {a.max():.3e}] "
+            f"(C 1), |y'alpha| {ya:.3e} (SMALXE's ||B u|| {r.normBu:.3e}, tolerance "
+            f"{eq_tol:.3e}), training score {score:.4f}")
+        if r.reason != 2 or a.min() < 0.0 or a.max() > 1.0 or not ya <= 1.001 * eq_tol \
+                or not score > 0.5:
+            raise AssertionError(f"13d SVC {kernel}: reason {r.reason}, |y'a| {ya}")
+        del clf
+    torch.cuda.empty_cache()
+    return gather_apply.launches, n_sell
 
 
 def random_sparse(m, n, nnz, rng):
@@ -2109,6 +2591,7 @@ def main():
                           ("10", lambda: phase_band_coarse(dev)),
                           ("12", lambda: phase_dense(dev)),
                           ("12c", lambda: phase_dense_reference(dev)),
+                          ("13", lambda: phase_leaf(dev)),
                           ("11", lambda: phase_qp_rest(*phase_qp_only(dev))),
                           ("11c", lambda: [phase_ex3(int(n), dev)
                                            for n in opts.get("--ex3-n", str(EX3_N)).split(",")]),
@@ -2150,12 +2633,18 @@ def main():
     del prob
     sell_launches, res64, t64 = phase_qp(jb, jb_rcm, t_host_jb, dev)
     sell_launches += phase_qp_rest(jb_rcm, res64, t64, dev)
-    del jb, jb_rcm, res64
+    qp_its = res64.iterations
+    del jb, res64
     launches += phase_contact(dev)
     launches += phase_elasticity(elastic, t_host_elastic, dev)
     del elastic
     launches += phase_band_coarse(dev)
-    launches += phase_dense(dev)
+    n12, rows = phase_dense(dev)
+    launches += n12
+    g13, s13 = phase_leaf(dev, rows, jb_rcm, qp_its)
+    del rows
+    launches += g13
+    sell_launches += s13
 
     print(json.dumps({"kernels": [
         {"name": "gather_apply", "route": "cuda",

@@ -16,34 +16,38 @@ Idiom of the port:
 - no ``jit``: ``lax.scan`` is a Python loop, ``lax.while_loop`` a Python
   loop with one host check per iteration.
 
-Ported so far: the dense TFETI path of the PERMON tutorials
-(:func:`~permon_tpu_torch.feti.solve.feti_solve` and
-:class:`~permon_tpu_torch.feti.solve.FetiSolver` on a
+Ported: every single-device mode of the JAX package.  The dense TFETI
+path of the PERMON tutorials (:func:`~permon_tpu_torch.feti.solve.feti_solve`
+and :class:`~permon_tpu_torch.feti.solve.FetiSolver` on a
 :class:`~permon_tpu_torch.feti.assembly.FetiProblem`: every gluing type,
 Dirichlet rows or elimination in the Hessian, constant / numeric /
 rigid-body nullspaces, projected CG with or without the lumped
 preconditioner, SMALXE on the projected or the unprojected dual,
-``orth_G``, contact rows; the MATIS entry
+``orth_G``, contact rows, and ``throughput=True``: the leaf path of
+:mod:`permon_tpu_torch.feti.leaf` / :mod:`~permon_tpu_torch.feti.leafqp`
+with explicit K+ inverses; ``FetiSolver.save`` / ``load``); the MATIS entry
 :func:`~permon_tpu_torch.feti.matis.feti_problem_from_matis`; the whole QP
 transform chain with ``all_in_one`` / ``feti_prepare`` /
-``feti_prepare_reuse_cp`` and :mod:`permon_tpu_torch.qp.orth`), the
+``feti_prepare_reuse_cp`` and :mod:`permon_tpu_torch.qp.orth`; the
 large-path TFETI solve, linear and with contact
-(:mod:`permon_tpu_torch.feti.large`: inequality rows ``BI``/``cI``,
-Dirichlet rows or in-Hessian elimination, SMALXE around MPRGP on the
-projected or the unprojected dual, the lumped dual preconditioner), for
-Poisson and for 3-D elasticity (rigid-body nullspace, the block coarse
-operator ``BlockCoarse``, the band factorization of the coarse GG',
-``reorder_rcm``), the whole of the band module
-(:mod:`permon_tpu_torch.core.band`), and the general QP path
-(``QP.create`` -> ``make_operator`` -> ``SEll`` / ``Dia`` -> ``solve`` ->
-MPRGP / CG / SMALXE / PCPG / the TAO analog, ``dualize`` with the dense
-K+ of :mod:`permon_tpu_torch.core.factor`, the precision policies up to
-``'bf16_mixed'``) with the small core modules (``matutils``, ``vec``,
-``sparse_rows``).  Still to come, each raising ``NotImplementedError``
-pointing at ROADMAP.md: ``FetiOptions(throughput=True)`` (the leaf path),
-``mesh`` / ``qppf_redundancy`` (multi-device), ``FetiSolver.save``.  Entry points run on the card: ``device=None``
-means the first CUDA device and raises without one; pass ``device="cpu"``
-for the CPU.
+(:mod:`permon_tpu_torch.feti.large`), for Poisson and for 3-D elasticity
+(rigid-body nullspace, ``BlockCoarse``, the band factorization of the
+coarse GG', ``reorder_rcm``); the band module
+(:mod:`permon_tpu_torch.core.band`); the general QP path (``QP.create`` ->
+``make_operator`` -> ``SEll`` / ``Dia`` -> ``solve`` -> MPRGP / CG / SMALXE
+/ PCPG / the TAO analog, ``dualize`` with the dense K+ of
+:mod:`permon_tpu_torch.core.factor`, the precision policies up to
+``'bf16_mixed'``); the small core modules; and the user side: the options
+database (:class:`Options`, :func:`solve_from_options`), tracing with the
+:class:`Timer` wrapper (:mod:`permon_tpu_torch.sys`), the text
+:mod:`~permon_tpu_torch.viewers`, :mod:`permon_tpu_torch.utils.checkpoint`
+and the SVM (:mod:`permon_tpu_torch.svm`).  Still to come (multi-device,
+ROADMAP.md queue A item 5), each raising ``NotImplementedError``:
+``FetiOptions(mesh=...)``, ``FetiOptions(qppf_redundancy=True)``,
+``leaf_dual_qp(mesh=...)`` and the distributed coarse factor
+``Projector.cp_dist`` (interop).  Entry points run on the card:
+``device=None`` means the first CUDA device and raises without one; pass
+``device="cpu"`` for the CPU.
 """
 
 from __future__ import annotations
@@ -102,7 +106,7 @@ def not_ported(what: str) -> NotImplementedError:
 # the public names of the general QP path; imported last because the
 # submodules import the helpers above from this module
 from .core.convergence import ConvergedReason, Tolerances  # noqa: E402
-from .core.linop import Penalized, VStack, aslinearoperator  # noqa: E402
+from .core.linop import Penalized, Timer, VStack, aslinearoperator  # noqa: E402
 from .core.matutils import make_operator  # noqa: E402
 from .qp.qp import QP  # noqa: E402
 from .qpc.box import BoxConstraint  # noqa: E402
@@ -112,9 +116,12 @@ from .solvers.smalxe import SMALXEOptions, smalxe  # noqa: E402
 from .pc.dual import PCDual  # noqa: E402
 from .feti.assembly import FetiProblem  # noqa: E402
 from .feti.solve import FetiOptions, FetiSolver, feti_solve  # noqa: E402
+from .sys.options import Options, solve_from_options  # noqa: E402
+from . import viewers  # noqa: E402
 
 __all__ = ["Struct", "DeviceLike", "resolve_device", "as_torch_dtype", "not_ported",
            "QP", "solve", "make_solver", "make_operator", "aslinearoperator",
            "Tolerances", "ConvergedReason", "BoxConstraint", "MPRGPOptions",
            "SMALXEOptions", "smalxe", "PCDual", "VStack", "Penalized",
-           "FetiProblem", "FetiOptions", "FetiSolver", "feti_solve"]
+           "FetiProblem", "FetiOptions", "FetiSolver", "feti_solve", "Timer", "Options",
+           "solve_from_options", "viewers"]

@@ -236,13 +236,18 @@ def _expand_row(Dd: torch.Tensor, offsets, NB: int, Ad: torch.Tensor,
 
 
 def _check_tf32(dev: torch.device) -> None:
-    """The band factors and their applies need full-f32 products: under
-    TF32 the f32 Schur recurrence loses positive definiteness (the JAX
-    package forces "highest" precision for the same reason,
-    core/band.py:302-305), and TF32 GEMVs cap the refinement."""
-    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is True; the "
-                           "band Cholesky K+ needs full-f32 products")
+    """The band factors and their applies, the block K+ GEMVs and the leaf
+    path's batched products need full-f32 products: under TF32 the f32
+    Schur recurrence loses positive definiteness (the JAX package forces
+    "highest" precision for the same reason, core/band.py:302-305), TF32
+    GEMVs cap the refinement, and the f32-state leaf contact trajectory
+    collapses (feti/leaf.py:138-141)."""
+    if dev.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32
+                               or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is True (or the float32 matmul precision "
+            "is not 'highest'); the K+ factors and the leaf operator need full-precision "
+            "products")
 
 
 def expand_block_tridiag_dia(data: torch.Tensor, offsets, NB: int, dtype=None):

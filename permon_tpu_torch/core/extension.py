@@ -170,6 +170,8 @@ class SubdomainExtension(LinearOperator):
     nl: int
     gB: GatherTable = None  # mv table over decomposed cols, pad = ns*nl
     gBt: GatherTable = None  # rmv table over dual rows, pad = m_dual
+    #: (ns, k, nl) dense condensed blocks of the leaf path (with_dense_blocks)
+    blk: torch.Tensor = None
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -249,6 +251,24 @@ class SubdomainExtension(LinearOperator):
             gB=GatherTable.from_host(gi, gv, device, n_src=N),
             gBt=GatherTable.from_host(ti, tv, device, n_src=self.m_dual, overflow=ov),
         )
+
+    def with_dense_blocks(self, device=None) -> "SubdomainExtension":
+        """Materialize the condensed per-subdomain blocks blk[s, t, :] = the
+        row of slot t of subdomain s over the nl local dofs, for the batched
+        products of the leaf path (core/extension.py:150-161; ~k*nl*8 bytes
+        per subdomain), on the tables' device (``device`` without tables).
+        Each (s, t) slot holds one column, so one indexed assignment builds
+        it: nothing adds up."""
+        if self.blk is not None:
+            return self
+        dev = self.gB.idx.device if self.gB is not None else resolve_device(device)
+        ns, k = self.vals.shape
+        blk = torch.zeros((ns, k, self.nl), dtype=torch.float64, device=dev)
+        s_idx = torch.arange(ns, device=dev)[:, None].expand(ns, k)
+        t_idx = torch.arange(k, device=dev)[None, :].expand(ns, k)
+        cols = torch.as_tensor(self.cols.astype(np.int64), device=dev)
+        blk[s_idx, t_idx, cols] = torch.as_tensor(self.vals, dtype=torch.float64, device=dev)
+        return self.replace(blk=blk)
 
     def with_kernel(self, on: bool) -> "SubdomainExtension":
         """Route both tables through the CUDA kernel (True) or the plain

@@ -7,9 +7,8 @@ An operator is a plain dataclass with
 
 holding its tensors on one device.  Implicit composition (never
 materialized) follows the reference's MatProd idiom (reference:
-src/mat/impls/composite/matprod.c).  Ported: the operators the large-path
-TFETI solves (linear and contact) and the general QP path use; ``Timer``
-waits (ROADMAP.md).
+src/mat/impls/composite/matprod.c).  Ported: every operator of the JAX
+module, ``Timer`` included.
 """
 
 from __future__ import annotations
@@ -431,6 +430,43 @@ class OneRow(LinearOperator):
 
     def todense(self):
         return self.v[None, :]
+
+
+@dataclasses.dataclass
+class Timer(LinearOperator):
+    """Instrumentation wrapper — the MATTIMER analog (reference:
+    src/mat/impls/timer/mattimer.c).  Each apply runs inside a
+    ``torch.profiler.record_function`` range named ``<name>.mv`` /
+    ``<name>.rmv`` (visible in profiler traces) and bumps the host counter
+    of :mod:`permon_tpu_torch.sys.tracing`.  The JAX package's counters
+    count traces (one per compilation); the port runs eagerly, so they
+    count applications."""
+
+    inner: Any
+    name: str = "op"
+
+    @property
+    def shape(self):
+        return self.inner.shape
+
+    def _run(self, op: str, x):
+        from ..sys.tracing import count_op
+
+        count_op(self.name, op)
+        with torch.profiler.record_function(f"{self.name}.{op}"):
+            return getattr(self.inner, op)(x)
+
+    def mv(self, x):
+        return self._run("mv", x)
+
+    def rmv(self, x):
+        return self._run("rmv", x)
+
+    def diagonal(self):
+        return self.inner.diagonal()
+
+    def todense(self):
+        return self.inner.todense()
 
 
 def operator_device(op) -> torch.device:

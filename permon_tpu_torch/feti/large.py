@@ -48,7 +48,6 @@ the slice (meshes, ``qppf_redundancy``) the functions raise
 from __future__ import annotations
 
 import dataclasses
-import logging
 import time
 from typing import Any, List, Optional
 
@@ -81,8 +80,6 @@ from .assembly import (build_dirichlet_rows, build_gluing, constant_nullspace_co
                        decompose_rhs_by_multiplicity, dirichlet_global_ids,
                        nullspace_columns_from_blocks, rigid_body_modes)
 from .solve import FetiOptions, FetiResult, _device_extension, _sync, assemble_global_mean
-
-_log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -514,8 +511,10 @@ def _solve_prepared(qp, kplus, opts: FetiOptions, tol: Tolerances,
     if opts.pc_dual == "lumped" and qp.box is None and qp.BI is None:
         pc = PCDual.create(qp.BE, qp.A, "lumped").mv
     elif opts.pc_dual == "lumped":
-        _log.info("pc_dual='lumped' ignored for contact: the MPRGP inner "
-                  "solver runs unpreconditioned (qps/impls/mpgp)")
+        from ..sys import tracing
+
+        tracing.info("pc_dual='lumped' ignored for contact: the MPRGP inner "
+                     "solver runs unpreconditioned (qps/impls/mpgp)")
 
     if cur.BE is None:
         res = cg(cur, tol=tol, precond=pc)
@@ -874,8 +873,12 @@ class FetiSolverSparse:
             b_pad = np.zeros((prob.ns, qp.BE.nl))
             b_pad[:, : prob.nl] = prob.b_loc
             qp = qp.replace(b=torch.as_tensor(b_pad.reshape(-1), device=self.device))
+        from ..sys import tracing
+
         with deterministic_mode(self.opts.deterministic):
-            if self._pf is not None and qp.cE is None:
+            # debug mode takes the eager path, whose transforms run the
+            # self-checks (large.py:1022-1027)
+            if self._pf is not None and qp.cE is None and not tracing.debug_enabled:
                 return self._solve_fast(prob, qp, tol)
             res = _run_prepared_sparse(prob, self.opts, tol, qp, self.kplus,
                                        self.kplus_post, self.primal_refine, pf=self._pf)

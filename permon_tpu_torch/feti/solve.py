@@ -22,10 +22,14 @@ plane-major gather tables on the CUDA gather kernel
 table.  The floating test and the K+ regularization run batched on the
 device.
 
-Not ported here (``NotImplementedError``, see ROADMAP.md):
-``throughput=True`` (the leaf path, queue A item 4), ``mesh`` and
-``qppf_redundancy`` (multi-device, item 5), ``FetiSolver.save``
-(``utils/checkpoint.py``, item 6).
+``FetiOptions(throughput=True)`` is the leaf path (feti/leaf.py,
+feti/leafqp.py): explicit K+ inverses, dense extension blocks, and the
+Krylov / active-set iteration in the scaled-leaf space, whose partner
+combine runs on the gather kernel; the row-space chain above still makes
+the post-solves.
+
+Not ported here (``NotImplementedError``, see ROADMAP.md): ``mesh`` and
+``qppf_redundancy`` (multi-device, queue A item 5).
 """
 
 from __future__ import annotations
@@ -84,12 +88,13 @@ class FetiOptions:
     #: eigendecomposition, the MUMPS null-pivot analog; dense path only),
     #: 'rbm' (rigid body modes from ``prob.coords``, elasticity)
     nullspace: str = "constant"
-    #: the leaf path of the JAX package (explicit K+ inverses, dense
-    #: extension blocks); not ported
+    #: the leaf path: explicit per-block K+ inverses (one batched GEMV) and
+    #: dense extension blocks, the dual iteration in the scaled-leaf space
     throughput: bool = False
-    #: dense path: 'f64'; 'mixed' (f32 operator storage of the dual behind
-    #: f64 vectors); 'f32' (the whole dual QP in f32).  The coarse projector
-    #: stays f64.  The large path does not read it
+    #: dense path: 'f64'; 'mixed' (row path: f32 operator storage of the
+    #: dual behind f64 vectors; leaf path: f32 leaf state with f64 dots);
+    #: 'f32' (the whole dual QP in f32).  The coarse projector and the leaf
+    #: path's spectral estimates stay f64.  The large path does not read it
     precision: str = "f64"
     #: bucket heterogeneous subdomain sizes in the K+ factorization
     #: (RaggedBlockDiagCholInv) instead of padding to nl_max
@@ -148,10 +153,10 @@ def assemble_global_mean(u: np.ndarray, l2g: np.ndarray, n_global: int) -> np.nd
 def _check_options(opts: FetiOptions) -> None:
     """Raise for the options outside the ported dense path (ROADMAP.md)
     and for values no path knows."""
-    for bad, what in ((opts.throughput, "FetiOptions(throughput=True) (the leaf path, "
-                       "feti/leaf.py and feti/leafqp.py; ROADMAP.md queue A item 4)"),
-                      (opts.mesh is not None, "FetiOptions(mesh=...) (multi-device; "
-                       "queue A item 5)"),
+    mesh_what = ("FetiOptions(mesh=...) with throughput=True (the leaf path's overlapped "
+                 "boundary exchange, parallel/overlap.py; multi-device, queue A item 5)"
+                 if opts.throughput else "FetiOptions(mesh=...) (multi-device; queue A item 5)")
+    for bad, what in ((opts.mesh is not None, mesh_what),
                       (opts.qppf_redundancy, "FetiOptions(qppf_redundancy=True) "
                        "(multi-device; queue A item 5)")):
         if bad:
@@ -200,6 +205,8 @@ def _assemble(prob: FetiProblem, opts: FetiOptions, dev: torch.device,
     rows, cols, vals = (np.concatenate([t[i] for t in blocks_coo]) for i in range(3))
     BE = _device_extension(
         SubdomainExtension.from_coo(rows, cols, vals, m=row_off + ng, ns=ns, nl=nl), opts, dev)
+    if opts.throughput:
+        BE = BE.with_dense_blocks()
     cE = torch.as_tensor(np.concatenate(cE_parts), dtype=torch.float64, device=dev)
     K_t = torch.as_tensor(np.asarray(K_blocks, dtype=np.float64), device=dev)
     if timings is not None:
@@ -343,7 +350,7 @@ def _attach_contact(qp: QP, BI, cI, opts: FetiOptions, dev: torch.device) -> QP:
 
 def _kplus(a: _Assembled, prob: FetiProblem, opts: FetiOptions):
     return make_blockdiag_kplus(
-        a.K_blocks, a.fixed_mask, prob, a.null_bases, explicit=False,
+        a.K_blocks, a.fixed_mask, prob, a.null_bases, explicit=opts.throughput,
         sizes=ragged_sizes(prob.l2g) if opts.ragged_kplus else None,
         rho_mode=opts.resolved_rho_mode(prob.ns), lam_max=a.lam_max)
 
@@ -380,6 +387,8 @@ class FetiSolver:
         _sync(self.device)
         self.timings["factor_s"] = time.perf_counter() - t0
         self._pf = None  # the coarse projector, from the first solve on
+        #: the leaf path's operators, from the first solve on (throughput=True)
+        self._leaf: dict = {}
 
     def solve(self, b_loc=None, tol: Tolerances = Tolerances()) -> FetiResult:
         prob, qp = self.prob, self.qp
@@ -387,13 +396,40 @@ class FetiSolver:
             prob = dataclasses.replace(prob, b_loc=np.asarray(b_loc))
             qp = qp.replace(b=torch.as_tensor(np.asarray(b_loc, dtype=np.float64).reshape(-1),
                                               device=self.device))
-        res = _feti_solve_impl(prob, self.opts, tol, qp, self.kplus, pf=self._pf)
+        res = _feti_solve_impl(prob, self.opts, tol, qp, self.kplus, pf=self._pf,
+                               leaf_cache=self._leaf)
         if self._pf is None:
             self._pf = res.dual_qp.pf
         return res
 
     def save(self, path: str) -> None:
-        raise not_ported("FetiSolver.save (utils/checkpoint.py; ROADMAP.md queue A item 6)")
+        """Checkpoint the factorized state, ``{"kplus", "qp"}`` and, after
+        the first solve, the coarse projector ``"pf"`` (utils/checkpoint.py);
+        :meth:`load` makes a solver of it again."""
+        from ..utils.checkpoint import save
+
+        state = {"kplus": self.kplus, "qp": self.qp}
+        if self._pf is not None:
+            state["pf"] = self._pf
+        save(path, state)
+
+    @classmethod
+    def load(cls, path: str, prob: FetiProblem, opts: FetiOptions = FetiOptions(),
+             device=None) -> "FetiSolver":
+        """A solver of the state :meth:`save` wrote for ``prob`` / ``opts``,
+        on ``device`` (None: the card): nothing is assembled or factorized
+        again."""
+        from ..utils.checkpoint import load
+
+        _check_options(opts)
+        state = load(path, device)
+        self = cls.__new__(cls)
+        self.prob, self.opts, self.device = prob, opts, resolve_device(device)
+        self.timings = {}
+        self.qp, self.kplus = state["qp"], state["kplus"]
+        self._K_blocks, self._fixed_mask, self._null_bases = self.qp.A.blocks, None, None
+        self._pf, self._leaf = state.get("pf"), {}
+        return self
 
 
 def feti_solve(prob: FetiProblem, opts: FetiOptions = FetiOptions(),
@@ -411,15 +447,106 @@ def feti_solve(prob: FetiProblem, opts: FetiOptions = FetiOptions(),
 
 
 def _feti_solve_impl(prob: FetiProblem, opts: FetiOptions, tol: Tolerances, qp: QP,
-                     kplus, pf=None) -> FetiResult:
+                     kplus, pf=None, leaf_cache: Optional[dict] = None) -> FetiResult:
     """One solve of an assembled, factorized problem; ``pf`` reuses the
-    coarse projector of an earlier solve (its G = R'B' is the same)."""
+    coarse projector of an earlier solve (its G = R'B' is the same), and
+    ``leaf_cache`` (a dict, filled by the first solve) the leaf path's
+    operators."""
     with deterministic_mode(opts.deterministic):
-        return _feti_solve_body(prob, opts, tol, qp, kplus, pf)
+        return _feti_solve_body(prob, opts, tol, qp, kplus, pf, leaf_cache)
+
+
+def _use_leaf(opts: FetiOptions, qp: QP, kplus) -> bool:
+    """The leaf path takes a throughput solve whose constraint rows are
+    extension operators and whose K+ has explicit inverses (solve.py:
+    428-434)."""
+    return (opts.throughput and opts.orth_G is None
+            and isinstance(qp.BE, SubdomainExtension)
+            and (qp.BI is None or isinstance(qp.BI, SubdomainExtension))
+            and hasattr(kplus, "explicitly"))
+
+
+def _leaf_qp(qp: QP, dual: QP, kplus, cache: Optional[dict]):
+    """(leaf QP, sls) of ``dual``: the dual of the STACKED [BE; BI] in the
+    scaled-leaf space, its cE homogenized; its operators, projector and sls
+    come from ``cache`` when an earlier solve put them there."""
+    from .leafqp import leaf_dual_qp
+
+    cache = {} if cache is None else cache
+    if "B_full" not in cache:
+        cache["B_full"] = (qp.BE if qp.BI is None
+                           else SubdomainExtension.vstack((qp.BE, qp.BI)).with_dense_blocks())
+    leaf, sls = leaf_dual_qp(dual, cache["B_full"], kplus, reuse=cache.get("leaf"))
+    cache.setdefault("leaf", leaf)
+    if leaf.cE is not None:
+        leaf, _ = homogenize_eq(leaf)
+    return leaf, sls
+
+
+def _leaf_smalxe_opts(sm: SMALXEOptions, leaf64: QP, sls, m: int) -> SMALXEOptions:
+    """SMALXE options with the spectral estimates made on the leaf QP being
+    solved (projected or not) from the lifted all-ones start, so that the
+    power method, and with it M1 / rho / alpha and the counts, follow the
+    row-space solve; always on the f64 operators ``leaf64`` (solve.py:
+    472-502: an f32 power method shifted the schedule to 41/84 outer/inner
+    against f64's 34/91 on the contact example)."""
+    from ..core.eig import max_eigenvalue
+    from ..core.linop import Penalized
+
+    if leaf64.BE is None:
+        return sm
+    v0 = sls.lift(torch.ones(m, dtype=leaf64.b.dtype, device=leaf64.b.device))
+    if sm.maxeig is None and ((not sm.M1_direct) or (not sm.rho_direct) or sm.inject_maxeig):
+        sm = dataclasses.replace(sm, maxeig=max_eigenvalue(
+            leaf64.A, v0=v0, tol=sm.maxeig_tol, maxits=sm.maxeig_iter))
+    if sm.maxeig_inner is None and not sm.inject_maxeig:
+        rho0 = (torch.tensor(sm.rho, dtype=v0.dtype, device=v0.device) if sm.rho_direct
+                else sm.rho * torch.as_tensor(sm.maxeig, dtype=v0.dtype, device=v0.device))
+        sm = dataclasses.replace(sm, maxeig_inner=max_eigenvalue(
+            Penalized(a=leaf64.A, b=leaf64.BE, rho=rho0), v0=v0, tol=sm.maxeig_tol,
+            maxits=sm.maxeig_iter))
+    return sm
+
+
+def _leaf_precision(leaf: QP, policy: str, cache: dict) -> QP:
+    """The whole-QP policy on the leaf QP: f32 leaf state (iterates,
+    axpys, gradient splits), under 'mixed' with every solver dot promoted to
+    f64; the projector stays f64.  The f32 copies of the operators are made
+    once per cache."""
+    if policy == "f64":
+        return leaf
+    if ("lo", policy) not in cache:
+        lo = leaf.with_precision(policy)
+        cache[("lo", policy)] = (lo.A, lo.BE)
+    A, BE = cache[("lo", policy)]
+    # casting what is already f32 keeps the tensors: only b, x0, box, cE are new
+    return leaf.replace(A=A, BE=BE).with_precision(policy)
+
+
+def _leaf_lumped_pc(K_blocks: torch.Tensor, sls, policy: str, cache: dict):
+    """The lumped dual preconditioner on scaled-leaf vectors of the stacked
+    extension ``cache["B_full"]``, in f32 under a reduced precision policy
+    (made once per cache)."""
+    from ..core.precision import cast_floats
+    from .leafqp import lumped_pc_leaf
+
+    if ("pc", policy) not in cache:
+        pc = lumped_pc_leaf(cache["B_full"], K_blocks, sls)
+        cache[("pc", policy)] = pc if policy == "f64" else cast_floats(pc, torch.float32)
+    return cache[("pc", policy)]
+
+
+def _row_solution(res, sls) -> Solution:
+    """The solver's result as a row-space Solution (restricted from leaf
+    space when ``sls`` is given)."""
+    bt = getattr(res, "Bt_lambda", None)
+    if sls is None:
+        return Solution(x=res.x, Bt_lambda=bt)
+    return Solution(x=sls.restrict(res.x), Bt_lambda=None if bt is None else sls.restrict(bt))
 
 
 def _feti_solve_body(prob: FetiProblem, opts: FetiOptions, tol: Tolerances, qp: QP,
-                     kplus, pf=None) -> FetiResult:
+                     kplus, pf=None, leaf_cache: Optional[dict] = None) -> FetiResult:
     steps = []
     dual, post_d = dualize(qp, kplus=kplus, coarse=opts.coarse, pf=pf)
     steps.append((dual, post_d))
@@ -442,31 +569,62 @@ def _feti_solve_body(prob: FetiProblem, opts: FetiOptions, tol: Tolerances, qp: 
 
     # the lumped dual preconditioner M = B K B' with the ORIGINAL blocks
     # (pcdual.c:63-78); they are A's unless Dirichlet was eliminated
-    precond = None
+    use_leaf = _use_leaf(opts, qp, kplus)
+    precond = K_orig = None
     if opts.pc_dual == "lumped":
         from ..pc.dual import PCDual
 
         eliminated = not opts.dirichlet_by_B and len(prob.dirichlet)
         K_op = qp.A if not eliminated else BlockDiagDense(blocks=torch.as_tensor(
             np.asarray(prob.K_blocks, dtype=np.float64), device=qp.b.device))
-        precond = PCDual.create(qp.BE, K_op, "lumped").mv
+        K_orig = K_op.blocks
+        if not use_leaf:
+            precond = PCDual.create(qp.BE, K_op, "lumped").mv
+
+    # the scaled-leaf dual (feti/leafqp.py): the Krylov / active-set
+    # iteration moves to leaf space, the row-space chain above still makes
+    # the post-solves
+    leaf = leaf64 = sls = pc_leaf = None
+    if use_leaf:
+        leaf_cache = {} if leaf_cache is None else leaf_cache
+        leaf, sls = _leaf_qp(qp, dual, kplus, leaf_cache)
+        leaf64 = leaf
+        leaf = _leaf_precision(leaf, opts.precision, leaf_cache)
+        if opts.pc_dual == "lumped":
+            pc_leaf = _leaf_lumped_pc(K_orig, sls, opts.precision, leaf_cache).mv
 
     if cur.BE is None:
         # no floating subdomain -> no coarse space: plain (preconditioned) CG
-        res = cg(cur, tol=tol, precond=precond)
+        res = (cg(leaf, tol=tol, precond=pc_leaf) if use_leaf
+               else cg(cur, tol=tol, precond=precond))
     elif opts.project:
         pf_holder = cur
         cur, post_p = enforce_eq_by_projector(cur)
         steps.append((cur, post_p))
+        if use_leaf:
+            leaf_pf = leaf.pf
+            leaf, _ = enforce_eq_by_projector(leaf)
+            # the f64 twin of the spectral estimates follows the projection
+            leaf64 = leaf if opts.precision == "f64" else enforce_eq_by_projector(leaf64)[0]
         if cur.box is None and cur.BE is None:
-            project = pf_holder.pf.apply_p if precond is not None else None
-            res = cg(cur, tol=tol, precond=precond, project=project)
-        else:
+            if use_leaf:
+                project = leaf_pf.apply_p if pc_leaf is not None else None
+                res = cg(leaf, tol=tol, precond=pc_leaf, project=project)
+            else:
+                project = pf_holder.pf.apply_p if precond is not None else None
+                res = cg(cur, tol=tol, precond=precond, project=project)
+        elif use_leaf:
             # a box survives (contact): SMALXE on the projected dual
+            res = smalxe(leaf, opts=_leaf_smalxe_opts(opts.smalxe, leaf64, sls, dual.b.shape[0]),
+                         tol=tol)
+        else:
             res = smalxe(cur, opts=opts.smalxe, tol=tol)
+    elif use_leaf:
+        res = smalxe(leaf, opts=_leaf_smalxe_opts(opts.smalxe, leaf64, sls, dual.b.shape[0]),
+                     tol=tol)
     else:
         res = smalxe(cur, opts=opts.smalxe, tol=tol)
-    sol = compose(steps)(Solution(x=res.x, Bt_lambda=getattr(res, "Bt_lambda", None)))
+    sol = compose(steps)(_row_solution(res, sls))
 
     u = sol.x.detach().cpu().numpy().reshape(prob.ns, prob.nl)
     x_global = assemble_global_mean(u, prob.l2g, prob.n_global)
@@ -477,21 +635,30 @@ def _feti_solve_body(prob: FetiProblem, opts: FetiOptions, tol: Tolerances, qp: 
 def prepare_contact_children(prob: FetiProblem, opts: FetiOptions, BI, cI, kplus=None,
                              device=None):
     """The QP the contact pipeline hands to SMALXE — the projected dual with
-    its surviving box — in row space; returns ``(qp_solve, smalxe_opts,
-    None)`` (the JAX package's ``throughput=False`` return), so that
-    ``smalxe(qp_solve, opts=smalxe_opts)`` reproduces the iteration of
-    :func:`feti_solve`."""
+    its surviving box — in row space, or with ``opts.throughput`` its
+    scaled-leaf twin with row-matched spectral estimates (solve.py:
+    567-623).  Returns ``(qp_solve, smalxe_opts, sls)``, ``sls`` None on the
+    row path, so that ``smalxe(qp_solve, opts=smalxe_opts)`` reproduces the
+    iteration of :func:`feti_solve`."""
     _check_options(opts)
     dev = resolve_device(device)
     a = _assemble(prob, opts, dev)
     qp = _attach_contact(a.qp, BI, cI, opts, dev)
     if kplus is None:
         kplus = make_blockdiag_kplus(a.K_blocks, a.fixed_mask, prob, a.null_bases,
+                                     explicit=opts.throughput,
                                      rho_mode=opts.resolved_rho_mode(prob.ns),
                                      lam_max=a.lam_max)
     dual, _ = dualize(qp, kplus=kplus, coarse=opts.coarse)
-    cur = dual
-    if cur.cE is not None:
-        cur, _ = homogenize_eq(cur)
-    cur, _ = enforce_eq_by_projector(cur)
-    return cur, opts.smalxe, None
+    if not opts.throughput:
+        cur = dual
+        if cur.cE is not None:
+            cur, _ = homogenize_eq(cur)
+        cur, _ = enforce_eq_by_projector(cur)
+        return cur, opts.smalxe, None
+    leaf, sls = _leaf_qp(qp, dual, kplus, None)
+    leaf, _ = enforce_eq_by_projector(leaf)
+    sm = _leaf_smalxe_opts(opts.smalxe, leaf, sls, dual.b.shape[0])
+    # f32 leaf state (+ f64 dots under 'mixed'), the estimates above made
+    # on the f64 operators first
+    return leaf.with_precision(opts.precision), sm, sls

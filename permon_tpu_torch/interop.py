@@ -16,7 +16,10 @@ inverses CholInv / BlockDiagCholInv / RaggedBlockDiagCholInv /
 IterativeInv, the precision wrappers CastTo / MixedPrecision,
 TAOResult, and the dense TFETI path's BlockDiagDense, BlockColumns,
 Gluing, MatIS (with their gather tables built anew), BandOrthT, Solution
-and FetiProblem (a host dataclass: its arrays as they are).  bf16 arrays (numpy has no bf16: JAX hands out ml_dtypes
+and FetiProblem (a host dataclass: its arrays as they are), and the leaf
+path's LeafDualSpace (its partners and weights as they are, the combine /
+restrict / lift tables built from them), LeafDualOperator, LeafProjector,
+ScaledLeafSpace and LeafG.  bf16 arrays (numpy has no bf16: JAX hands out ml_dtypes
 arrays) cross through float32, which holds every bf16 value exactly.
 """
 
@@ -37,6 +40,8 @@ from .core.precision import CastTo, MixedPrecision, cast_floats
 from .core.sell import SEll
 from .feti.assembly import FetiProblem
 from .feti.large import BlockCoarse
+from .feti.leaf import LeafDualOperator, LeafDualSpace, LeafProjector
+from .feti.leafqp import LeafG, ScaledLeafSpace
 from .feti.matis import MatIS
 from .pc.dual import PCDual
 from .qp.projector import Projector
@@ -312,6 +317,36 @@ def solution_from_arrays(obj, device=None) -> Solution:
                        for f in ("x", "lambda_E", "lambda_I", "Bt_lambda", "g")})
 
 
+def leafspace_from_arrays(obj, device=None) -> LeafDualSpace:
+    """The partners and weights as they are; the combine / restrict / lift
+    tables built from them."""
+    return LeafDualSpace.from_partners(np.asarray(obj.rows), np.asarray(obj.partners),
+                                       np.asarray(obj.weights), int(obj.m_dual), device)
+
+
+def leafop_from_arrays(obj, device=None) -> LeafDualOperator:
+    dev = resolve_device(device)
+    return LeafDualOperator(blk=_t(obj.blk, dev), invs=_t(obj.invs, dev),
+                            space=leafspace_from_arrays(obj.space, dev))
+
+
+def leafprojector_from_arrays(obj, device=None) -> LeafProjector:
+    dev = resolve_device(device)
+    Gl, weights = _t(obj.Gl, dev), _t(obj.weights, dev)
+    return LeafProjector(Gl=Gl, chol=_t(obj.chol, dev), weights=weights, Glw=Gl * weights)
+
+
+def scaledleafspace_from_arrays(obj, device=None) -> ScaledLeafSpace:
+    dev = resolve_device(device)
+    return ScaledLeafSpace(space=leafspace_from_arrays(obj.space, dev), s=_t(obj.s, dev),
+                           si=_t(obj.si, dev))
+
+
+def leafg_from_arrays(obj, device=None) -> LeafG:
+    dev = resolve_device(device)
+    return LeafG(Gl=_t(obj.Gl, dev), sp=scaledleafspace_from_arrays(obj.sp, dev))
+
+
 def feti_problem_from_arrays(obj, device=None) -> FetiProblem:
     """The JAX package's FetiProblem as the port's (host arrays both)."""
     import dataclasses
@@ -327,6 +362,11 @@ _BY_NAME = {
     "BandOrthT": bandortht_from_arrays,
     "Solution": solution_from_arrays,
     "FetiProblem": feti_problem_from_arrays,
+    "LeafDualSpace": leafspace_from_arrays,
+    "LeafDualOperator": leafop_from_arrays,
+    "LeafProjector": leafprojector_from_arrays,
+    "ScaledLeafSpace": scaledleafspace_from_arrays,
+    "LeafG": leafg_from_arrays,
     "SubdomainExtension": extension_from_arrays,
     "BlockDia": blockdia_from_arrays,
     "RegularizedBlockDia": regularized_from_arrays,

@@ -20,6 +20,8 @@ D, every Dirichlet diagonal convention) and ``build_feti_contact``
 bearing), ``rcm_permuted`` (reverse Cuthill-McKee reordering of a QP, which
 turns a stencil Hessian into the unstructured pattern of a real mesh) and
 ``laplacian_3d_rcm`` (the unstructured SpMV matrix of ``bench.py``).
+SVM: ``make_blobs`` (examples/svm.py) and ``make_a9a_like`` (data of the
+shape of LIBSVM's a9a, synthetic).
 
 ``build_sparse(cells, grid)`` is the 3-D Poisson ex71 configuration
 (reference: src/tutorials/feti/ex71.c): Q1 elements on a box of
@@ -719,3 +721,34 @@ def laplacian_3d_rcm(nx: int):
     a = (sp.kron(sp.kron(n1, i1), i1) + sp.kron(sp.kron(i1, n1), i1)
          + sp.kron(sp.kron(i1, i1), n1)).tocsr()
     return (rcm_permuted(a, None)[0] / 12.0).tocsr()
+
+
+def make_blobs(n=200, dim=2, seed=0, margin=1.0):
+    """Two Gaussian blobs at +-margin with labels +-1, shuffled
+    (examples/svm.py::make_blobs)."""
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    Xp = rng.standard_normal((half, dim)) + margin
+    Xn = rng.standard_normal((n - half, dim)) - margin
+    X = np.vstack([Xp, Xn])
+    y = np.concatenate([np.ones(half), -np.ones(n - half)])
+    perm = rng.permutation(n)
+    return X[perm], y[perm]
+
+
+def make_a9a_like(n=32561, dim=123, groups=14, seed=0, flip=0.05):
+    """Synthetic data of the shape of LIBSVM's a9a (the UCI Adult census
+    set: 32,561 rows, 123 binary features, each row one-hot in 14 feature
+    groups): row i sets one feature of each group; the labels are the sign
+    of a random hyperplane through the data's mean, ``flip`` of them
+    flipped (not separable, as a9a is not)."""
+    rng = np.random.default_rng(seed)
+    edges = np.linspace(0, dim, groups + 1).astype(int)
+    X = np.zeros((n, dim))
+    for g in range(groups):
+        X[np.arange(n), rng.integers(edges[g], edges[g + 1], n)] = 1.0
+    w = rng.standard_normal(dim)
+    score = (X - X.mean(axis=0)) @ w
+    y = np.where(score > 0, 1.0, -1.0)
+    y[rng.random(n) < flip] *= -1.0
+    return X, y

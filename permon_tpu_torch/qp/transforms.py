@@ -33,6 +33,7 @@ from ..core.factor import make_inv
 from ..core.linop import Dense, DenseTree, Penalized, Product, Scaled, Transpose, VStack
 from .projector import ProjOp, Projector, dense_rows
 from ..qpc.box import BoxConstraint
+from ..sys import tracing
 from .qp import QP
 
 #: k*(N+m) element count past which dualize(coarse='auto') builds the
@@ -143,6 +144,16 @@ def dualize(qp: QP, regularize: bool = True, kplus=None, kplus_mode: str = "plai
         # Kplus_ QPPF of qptransform.c:1035-1046)
         P_R = ProjOp(pf=Projector.create(Transpose(qp.R)))
         Kplus = Product((P_R, Kplus, P_R) if kplus_mode == "mp" else (P_R, Kplus))
+        if tracing.debug_enabled:
+            # the generalized-inverse self-checks of the reference's
+            # PermonDebugEnabled block (qptransform.c:1060-1081): K K+ K == K
+            # (left inverse); K+ K K+ == K+ as well for Moore-Penrose
+            from ..core.matutils import mult_equal
+
+            if not mult_equal(Product((A, Kplus, A)), A):
+                raise AssertionError("Kplus is not a left generalized inverse (K Kplus K != K)")
+            if kplus_mode == "mp" and not mult_equal(Product((Kplus, A, Kplus)), Kplus):
+                raise AssertionError("Kplus is not Moore-Penrose (Kplus K Kplus != Kplus)")
     F = Product((B, Kplus, Transpose(B)))
     d = B.mv(Kplus.mv(b)) - c
 
@@ -229,6 +240,14 @@ def enforce_eq_by_projector(qp: QP) -> Tuple[QP, PostSolve]:
         raise ValueError("apply homogenize_eq before enforce_eq_by_projector")
     qp = ensure_pf(qp)
     P = ProjOp(pf=qp.pf)
+    if tracing.debug_enabled:
+        # projector self-checks in debug mode: P idempotent, BE P == 0
+        from ..core.matutils import mult_equal
+
+        if not mult_equal(Product((P, P)), P):
+            raise AssertionError("P is not idempotent")
+        if not mult_equal(Product((qp.BE, P)), Scaled(inner=qp.BE, scale=0.0)):
+            raise AssertionError("BE P != 0 (P does not project onto ker BE)")
     if qp.BI is None and qp.box is None:
         child = qp.replace(A=Product((P, qp.A)), b=P.mv(qp.b), BE=None, cE=None, pf=None)
     else:

@@ -347,13 +347,19 @@ def test_obstacle_fast_path_and_gather_plain(obstacle_3d):
     np.testing.assert_array_equal(plain.x_global, r1.x_global)
 
 
-def test_lumped_is_ignored_for_contact(obstacle_3d, caplog):
+def test_lumped_is_ignored_for_contact(obstacle_3d, capsys):
+    from permon_tpu_torch.sys import tracing
+
     prob, BI, cI, cap, tol, ref, res = obstacle_3d
-    with caplog.at_level("INFO", logger="permon_tpu_torch.feti.large"):
+    old = tracing.info_enabled
+    tracing.set_from_options(info=True)  # the notice is a tracing.info line
+    try:
         r = feti_solve_sparse(prob, FetiOptions(gluing="nonred", deterministic=True,
                                                 pc_dual="lumped"), BI=BI, cI=cI,
                               tol=Tolerances(rtol=tol), device="cpu")
-    assert "ignored for contact" in caplog.text
+    finally:
+        tracing.set_from_options(info=old)
+    assert "INFO: pc_dual='lumped' ignored for contact" in capsys.readouterr().out
     assert _counts(r.result) == _counts(res.result)
 
 

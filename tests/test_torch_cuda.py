@@ -610,3 +610,122 @@ def test_ex1_and_contact_on_card(cuda_device):
     assert (res.result.iterations, res.result.inner_iterations) == (
         ref.result.iterations, ref.result.inner_iterations)
     np.testing.assert_allclose(res.x_global, ref.x_global, rtol=0, atol=1e-9)
+
+
+# -- the leaf path (throughput=True) and the checkpoint -------------------------
+
+
+def _leaf_space(device):
+    from permon_tpu_torch.feti.leaf import LeafDualSpace
+    from permon_tpu_torch.problems import build_ex71
+
+    prob = build_ex71((6, 6, 6), (2, 2, 2))
+    r, c, v, m = build_gluing(prob.l2g, "full", True)
+    B = SubdomainExtension.from_coo(r, c, v, m=m, ns=prob.ns, nl=prob.nl)
+    return B, LeafDualSpace.build(B.with_gather_apply(device))
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_leaf_tables_on_kernel_equal_plain_bitwise(cuda_device, dt):
+    """The combine, restrict and lift tables through the kernel, one launch
+    each, bitwise equal to the plain version (in f32 through the casts of
+    table_as, as the 'mixed' leaf state runs them)."""
+    _, sp = _leaf_space(cuda_device)
+    assert sp.comb.idx.shape[0] >= 2  # the identity plane and the partners
+    rng = np.random.RandomState(8)
+    X = torch.as_tensor(rng.standard_normal(sp.rows.shape), dtype=dt, device=cuda_device)
+    lam = torch.as_tensor(rng.standard_normal(sp.m_dual), dtype=dt, device=cuda_device)
+    plain = sp.with_kernel(False)
+    for f, arg in (("combine", X), ("restrict", X), ("lift", lam)):
+        n0 = gather_apply.launches
+        got = getattr(sp, f)(arg)
+        assert gather_apply.launches == n0 + 1, f
+        ref = getattr(plain, f)(arg)
+        assert gather_apply.launches == n0 + 1, f
+        torch.cuda.synchronize()
+        assert got.dtype == dt and torch.equal(got, ref), f
+
+
+def test_leaf_apply_on_card_equals_cpu(cuda_device):
+    """One leaf F apply on the card against the CPU on the same blocks,
+    inverses and partner map, to 1e-13 relative (the batched products sum
+    in another order); under TF32 the card refuses it."""
+    from permon_tpu_torch.feti.leaf import LeafDualOperator, LeafDualSpace
+    from permon_tpu_torch.feti.solve import assemble_qp, make_blockdiag_kplus
+    from permon_tpu_torch.problems import build_ex71
+
+    prob = build_ex71((6, 6, 6), (2, 2, 2))
+    qp, K, fixed, nb = assemble_qp(prob, FetiOptions(throughput=True), device="cpu")
+    cpu = LeafDualOperator.create(qp.BE, make_blockdiag_kplus(K, fixed, prob, nb, explicit=True))
+    sp = cpu.space
+    card = LeafDualOperator(
+        blk=cpu.blk.to(cuda_device), invs=cpu.invs.to(cuda_device),
+        space=LeafDualSpace.from_partners(sp.rows, sp.partners, sp.weights.numpy(), sp.m_dual,
+                                          cuda_device))
+    Lam = sp.lift(torch.as_tensor(np.random.RandomState(9).standard_normal(sp.m_dual)))
+    ref = cpu.apply(Lam)
+    n0 = gather_apply.launches
+    got = card.apply(Lam.to(cuda_device)).cpu()
+    assert gather_apply.launches == n0 + 1  # the partner combine
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-13 * scale
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="full-precision"):
+            card.apply(Lam.to(cuda_device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_leaf_solve_on_card(cuda_device):
+    """feti_solve(throughput=True) on the card: the count of the row path
+    and of the CPU within one (the explicit-inverse GEMV and the card's sums
+    round otherwise), the CPU's x_global to 1e-8 of max |x| at rtol 1e-10,
+    and the same solve through the plain gather version with an equal count
+    and a bitwise equal x_global."""
+    from permon_tpu_torch.feti.solve import feti_solve
+    from permon_tpu_torch.problems import build_ex71
+
+    prob = build_ex71((6, 6, 6), (2, 2, 2))
+    tol = Tolerances(rtol=1e-10)
+    row = feti_solve(prob, FetiOptions(gluing="nonred"), tol=tol, device=cuda_device)
+    n0 = gather_apply.launches
+    leaf = feti_solve(prob, FetiOptions(gluing="nonred", throughput=True), tol=tol,
+                      device=cuda_device)
+    assert gather_apply.launches > n0
+    cpu = feti_solve(prob, FetiOptions(gluing="nonred", throughput=True), tol=tol, device="cpu")
+    plain = feti_solve(prob, FetiOptions(gluing="nonred", throughput=True, gather_kernel=False),
+                       tol=tol, device=cuda_device)
+    assert leaf.result.reason == 2
+    assert abs(leaf.result.iterations - row.result.iterations) <= 1
+    assert abs(leaf.result.iterations - cpu.result.iterations) <= 1
+    np.testing.assert_allclose(leaf.x_global, cpu.x_global, rtol=0,
+                               atol=1e-8 * np.abs(cpu.x_global).max())
+    assert plain.result.iterations == leaf.result.iterations
+    np.testing.assert_array_equal(plain.x_global, leaf.x_global)
+
+
+def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """FetiSolver.save / load on the card: the gather tables come back with
+    padded planes and run on the kernel; a re-solve is bitwise equal."""
+    from permon_tpu_torch.feti.solve import FetiSolver
+    from permon_tpu_torch.problems import build_ex71
+    from permon_tpu_torch.utils import checkpoint
+
+    prob = build_ex71((6, 6, 6), (2, 2, 2))
+    opts = FetiOptions(gluing="nonred")
+    solver = FetiSolver(prob, opts, device=cuda_device)
+    solver.solve()
+    p = str(tmp_path / "solver.npz")
+    solver.save(p)
+    loaded = FetiSolver.load(p, prob, opts, device=cuda_device)
+    assert loaded.qp.BE.gBt.idx.stride(0) == solver.qp.BE.gBt.idx.stride(0)
+    b_new = 0.5 * prob.b_loc + 0.1
+    live = solver.solve(b_loc=b_new)
+    n0 = gather_apply.launches
+    again = loaded.solve(b_loc=b_new)
+    assert gather_apply.launches > n0
+    assert again.result.iterations == live.result.iterations
+    np.testing.assert_array_equal(again.x_global, live.x_global)
+    state = checkpoint.load(p, device=cuda_device)
+    assert state["kplus"].chols.device.type == "cuda"
