@@ -136,7 +136,29 @@ Phases:
    FetiSolver.save / load (a bitwise equal re-solve), SVC linear and rbf
    on data of a9a's shape (123 binary features; the rows cut to
    SVM_LINEAR_N / SVM_RBF_N, see there): reason 2, 0 <= alpha <= C,
-   |y'alpha| under SMALXE's equality tolerance.
+   |y'alpha| under SMALXE's equality tolerance;
+14. the multi-device layer (permon_tpu_torch.parallel), its ranks started
+   by ``python -m torch.distributed.run --standalone`` on this script's
+   rank worker (``--rank-worker=14a``), every rank on the one card (gloo:
+   NCCL refuses two ranks on one GPU), each rank's backend and staged
+   collectives printed: (a) the north star sharded over 2 ranks with phase
+   6's recipe and coarse='sparse', a first solve and two warm re-solves:
+   counts equal to a one-device run of the same options whose K+ makes
+   the ranks' calls (32 subdomains each), x_global within 1e-12 max |x|
+   of it, the residual as phase 6 holds it, each rank's B, B' and
+   copy-sum tables bitwise against gather_apply_plain, the time of one F
+   apply's all_reduce, each rank's peak memory; (b) the same on the (2, 2)
+   mesh, first with the coarse factor replicated (counts equal to the
+   one-device run with K+ in the ranks' calls of 16, x_global within 1e-12
+   of it), then with qppf_redundancy (the first solve's counts equal to
+   the replicated run's, a re-solve's defect pass within one, x_global
+   within X_14B_RED of it and X_14B_14A of (a)'s), RedundantCoarse.mv
+   within 1e-12 of cho_solve; (c) 12a's problem on the leaf path over 2 ranks
+   (the overlapped exchange): 23 iterations, x_global within 1e-10 of
+   13a's, the overlapped apply within 1e-12 of the flat one; (d) the twin
+   on NCCL with one rank: counts equal to phase 5's.  Ranks that
+   time-share one card measure correctness and collective overhead, not
+   scaling.
 
 Every phase raises on failure (exit code != 0).  The line before the last
 is the kernel JSON record (``ms``: one launch between two events with a
@@ -149,7 +171,10 @@ way), the last line {"ok": true,
 "device": ...}.  Development options, none of which prints the result lines:
 ``--kernels-only`` stops after phase 4; ``--only=9,10`` runs phases 1, 2
 and the named ones of 9, 9c, 9t, 10, 11 (11 after phase 7), 12, 12c, 13
-(with the row-path solves of 12a / 12b and phase 7 it compares with), 11c (the ex3
+(with the row-path solves of 12a / 12b and phase 7 it compares with), 14 (with the
+single-device solves of phases 6 and 13a it compares with), 14k (the band K+ apply
+by the subdomains its calls cover, which is why phase 14's one-device references make
+the ranks' calls), 11c (the ex3
 branch alone at the sizes of ``--ex3-n=4096,8192``), 11l (L-BFGS-B alone
 on the grids of ``--blmvm-grids=96,128,192``, beside scipy's own cost).  9c is SMALBE proper
 (project=False, rtol_E 0.1) on elastic contact at 361,416 dofs against its
@@ -521,6 +546,7 @@ def phase_twin(dev):
     if res.result.reason != 2 or not resid < 1e-8 or not 22 <= its <= 24:
         raise AssertionError(f"twin failed: reason {res.result.reason}, its {its}, "
                              f"residual {resid}")
+    return [r.iterations for r in res.results]
 
 
 def phase_main(prob, t_host_prob, dev):
@@ -590,7 +616,13 @@ def phase_main(prob, t_host_prob, dev):
     }
     for name, fn in parts.items():
         log(f"[main] breakdown {name}: {cuda_ms(fn, reps=5, warmup=1):.3f} ms")
-    return launches
+    # phase 14a's single-device reference: these options took the sparse
+    # coarse branch (a projector built before the first solve), which
+    # coarse='sparse' takes too
+    ref = None
+    if solver._pf is not None:
+        ref = dict(its1=its1, its2=its2, x1=r1.x_global, ms_per_it=1e3 * (t2 - t1) / sum(its2))
+    return launches, ref
 
 
 def box_kkt(A, b, far, cap, x):
@@ -1589,13 +1621,14 @@ def phase_leaf(dev, rows=None, jb_rcm=None, qp_its=None):
     space with its partner combine on the gather kernel) and the user-side
     modules, against phase 12's ``rows`` and phase 7's ``jb_rcm`` /
     ``qp_its`` (made here when not given).  Returns (gather_apply launches,
-    sell_mv launches)."""
+    sell_mv launches, 13a's count and x_global for phase 14c)."""
     rows = {} if rows is None else rows
     launches, leaf_13a = phase_leaf_poisson(dev, rows.get("12a"))
     launches += phase_leaf_elastic(dev, rows)
     launches += phase_leaf_contact(dev)
     g, sell_launches = phase_user(dev, jb_rcm, qp_its, leaf_13a)
-    return launches + g, sell_launches
+    r13a = leaf_13a[1]
+    return launches + g, sell_launches, dict(its=r13a.result.iterations, x=r13a.x_global)
 
 
 def phase_leaf_poisson(dev, row=None):
@@ -2543,6 +2576,485 @@ def phase_qp_only(dev):
     return jb_rcm, res64, t64, dev
 
 
+# -------------------------------------------------------------- phase 14
+
+#: phase 14b's problem: the north star on the (2, 2) mesh (TWIN if 14a-d
+#: together pass ~150 s; PERF.md says which was run)
+REDUNDANCY_PROBLEM = NORTH_STAR
+#: 14b's x_global with redundancy groups against the same mesh's run with
+#: the coarse factor replicated, and against 14a's (K+ in calls of 32),
+#: relative to max |x|: about ten times the readings (7.1e-12 and 8.3e-11;
+#: PERF.md, Findings)
+X_14B_RED = 1e-10
+X_14B_14A = 1e-9
+#: 13a's count, which 14c must reach over ranks (PERF.md)
+LEAF_ITS = 23
+#: seconds a run of ranks may take before it is killed
+RANKS_TIMEOUT_S = 300
+#: what a run of ranks writes: one .npz per rank (listed in .gitignore)
+RANKS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase14")
+
+
+def run_ranks(tag, nproc):
+    """Run ``nproc`` ranks of this script's worker ``tag`` on the card
+    (``python -m torch.distributed.run --standalone``), relay their log
+    lines, and return each rank's saved arrays.  The whole process group of
+    the launcher is killed on a timeout; a rank that fails fails the run."""
+    import signal
+    import shutil
+
+    import numpy as np
+
+    out = os.path.join(RANKS_DIR, tag)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", os.path.abspath(__file__), f"--rank-worker={tag}",
+           f"--out={out}"]
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 8) // nproc)))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=RANKS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        log(text[-6000:])
+        raise AssertionError(f"{tag}: the ranks passed {RANKS_TIMEOUT_S} s and were killed")
+    for line in text.splitlines():
+        if line.startswith(f"[{tag}"):
+            log(line)
+    if proc.returncode != 0:
+        log(text[-8000:])
+        raise AssertionError(f"{tag}: the ranks exited with {proc.returncode}")
+    log(f"[{tag}] {nproc} ranks ran in {time.perf_counter() - t0:.1f} s (launch included)")
+    return [dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(nproc)]
+
+
+def _same(ranks, key):
+    """The value of ``key``, which every rank must hold bitwise equal."""
+    import numpy as np
+
+    for r in ranks[1:]:
+        if not np.array_equal(r[key], ranks[0][key]):
+            raise AssertionError(f"ranks disagree on {key}")
+    return ranks[0][key]
+
+
+def _rank_lines(tag, ranks):
+    for r in ranks:
+        log(f"[{tag}] rank {int(r['rank'])}: backend {r['backend']}, staged "
+            f"({r['staged']}), peak device memory {float(r['peak']) / 2**30:.3f} GiB, "
+            f"gather_apply launches {int(r['launches'])}")
+
+
+def blocked_kplus(kp, block):
+    """The band K+ ``kp`` applied ``block`` subdomains at a time, each block
+    through its own ``shard_band``: on one device, the batched GEMV calls
+    that the ranks of a mesh make (cuBLAS picks its batched GEMV by the
+    batch count, so the apply rounds by the subdomains a call covers; 14k
+    shows it).  Only phase 14's one-device references use it."""
+    import dataclasses
+
+    import torch
+
+    from permon_tpu_torch.core.linop import LinearOperator
+    from permon_tpu_torch.parallel.dist import shard_band
+
+    @dataclasses.dataclass
+    class BlockedKplus(LinearOperator):
+        shape: tuple
+        parts: tuple
+
+        def mv(self, x):
+            n = self.parts[0].shape[0]
+            return torch.cat([p.mv(x[i * n:(i + 1) * n]) for i, p in enumerate(self.parts)])
+
+        rmv = mv
+
+    ns = kp.Dinv.shape[1]
+    return BlockedKplus(shape=kp.shape, parts=tuple(
+        shard_band(kp, lo, lo + block) for lo in range(0, ns, block)))
+
+
+def sparse_main_path(mesh, dev, cells_grid, redundancy=False, block=None):
+    """The main path over ranks (or one device): FetiSolverSparse with
+    phase 6's recipe on ``cells_grid``, a first solve and two warm
+    re-solves; ``block``: K+ applied that many subdomains a call
+    (:func:`blocked_kplus`, a one-device run that makes the ranks' calls)."""
+    import torch
+
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.core.sell import gather_apply
+    from permon_tpu_torch.feti.large import FetiSolverSparse
+    from permon_tpu_torch.feti.solve import FetiOptions
+    from permon_tpu_torch.problems import build_sparse
+
+    prob = build_sparse(*cells_grid)
+    tol = Tolerances(rtol=1e-5)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gather_apply.launches = 0  # the main path's launches only
+    opts = FetiOptions(gluing="nonred", deterministic=True, coarse="sparse", mesh=mesh,
+                       qppf_redundancy=redundancy)
+    solver, t_setup = timed_call(lambda: FetiSolverSparse(
+        prob, opts, kplus_dtype=torch.float32, kplus_refine=2, primal_refine=1, device=dev))
+    if block is not None:
+        post = blocked_kplus(solver.kplus_post, block)  # the factors shared, as in the solver
+        solver.kplus_post = post
+        solver.kplus = post.replace(parts=tuple(p.replace(refine=0) for p in post.parts))
+    r1, t1 = timed_call(lambda: solver.solve(tol=tol))
+    r2, t2 = timed_call(lambda: solver.solve(b_loc=1.5 * prob.b_loc, tol=tol))
+    r3, t3 = timed_call(lambda: solver.solve(b_loc=0.5 * prob.b_loc, tol=tol))
+    out = dict(launches=gather_apply.launches, peak=torch.cuda.max_memory_allocated(dev),
+               its1=[r.iterations for r in r1.results], its2=[r.iterations for r in r2.results],
+               its3=[r.iterations for r in r3.results],
+               reasons=[r.reason for r in r1.results + r2.results + r3.results],
+               x1=r1.x_global, x2=r2.x_global, t_setup=t_setup, t_first=t1, t_warm=[t2, t3],
+               host_setup=solver.timings["host_setup_s"], factor=solver.timings["factor_s"],
+               ns_loc=solver.qp.A.ns, m=solver.qp.BE.shape[0])
+    return solver, out
+
+
+def worker_14a(mesh, dev):
+    import numpy as np
+    import torch
+
+    from permon_tpu_torch.core.sell import gather_apply, _table_plain
+    from permon_tpu_torch.parallel.dist import all_reduce_sum
+
+    solver, out = sparse_main_path(mesh, dev, NORTH_STAR)
+    qp = solver.qp
+    # one F apply's all_reduce: the m-vector of f64, 20 times after 3 warm-ups
+    v = torch.as_tensor(np.random.RandomState(14).standard_normal(out["m"]), device=dev)
+    times = []
+    for i in range(23):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        all_reduce_sum(v, mesh)
+        torch.cuda.synchronize(dev)
+        if i >= 3:
+            times.append(1e3 * (time.perf_counter() - t0))
+    # the rank's tables through the kernel against the plain version
+    rng = np.random.RandomState(mesh.rank)
+    xp = torch.as_tensor(rng.standard_normal(qp.BE.shape[1]), device=dev)
+    xd = torch.as_tensor(rng.standard_normal(qp.BE.shape[0]), device=dev)
+    copies = solver._tables.copies  # over the gathered blocks of every rank
+    xc = torch.as_tensor(rng.standard_normal(copies.n_src), device=dev)
+    eq = [torch.equal(gather_apply(t, x), _table_plain(t, x)) for t, x in (
+        (qp.BE.gB, xp), (qp.BE.gBt, xd), (copies, xc))]
+    out.update(allreduce_ms=sorted(times)[len(times) // 2], tables_equal=eq)
+    return out
+
+
+def worker_14b(mesh, dev):
+    import numpy as np
+    import scipy.linalg
+    import torch
+
+    from permon_tpu_torch.qp.transforms import _sparse_coarse
+
+    # the same mesh with the coarse factor replicated: what redundancy moves
+    solver, plain = sparse_main_path(mesh, dev, REDUNDANCY_PROBLEM)
+    del solver
+    torch.cuda.empty_cache()
+    solver, out = sparse_main_path(mesh, dev, REDUNDANCY_PROBLEM, redundancy=True)
+    out.update({f"plain_{k}": plain[k] for k in ("its1", "its2", "reasons", "x1", "launches")})
+    cp = solver._pf.cp_dist
+    _, gram = _sparse_coarse(solver.qp.R, solver.qp.BE)
+    v = np.random.RandomState(14).standard_normal(cp.kc)
+    got = cp.mv(torch.as_tensor(v, device=dev)).cpu().numpy()
+    ref = scipy.linalg.cho_solve(scipy.linalg.cho_factor(gram.toarray()), v)
+    out.update(cp_err=np.abs(got - ref).max() / np.abs(ref).max(), kc=cp.kc, kb=cp.kb)
+    return out
+
+
+def worker_14c(mesh, dev):
+    import numpy as np
+    import torch
+
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.core.sell import gather_apply
+    from permon_tpu_torch.feti.leaf import LeafDualOperator
+    from permon_tpu_torch.feti.solve import FetiOptions, FetiSolver
+    from permon_tpu_torch.problems import build_ex71
+
+    prob = build_ex71(*DENSE_POISSON)
+    tol = Tolerances(rtol=1e-5)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gather_apply.launches = 0
+    solver, t_setup = timed_call(lambda: FetiSolver(
+        prob, FetiOptions(throughput=True, mesh=mesh), device=dev))
+    r1, t1 = timed_call(lambda: solver.solve(tol=tol))
+    rw, t2 = timed_call(lambda: solver.solve(b_loc=1.5 * prob.b_loc, tol=tol))
+    out = dict(launches=gather_apply.launches, peak=torch.cuda.max_memory_allocated(dev),
+               its=r1.result.iterations, its_warm=rw.result.iterations,
+               reasons=[r1.result.reason, rw.result.reason], x1=r1.x_global,
+               t_setup=t_setup, t_first=t1, t_warm=t2)
+    ovl = solver._leaf["leaf"].A.op
+    flat = LeafDualOperator(blk=solver._leaf["B_full"].blk, invs=solver.kplus.invs,
+                            space=ovl.space)
+    Lam = ovl.space.lift(torch.as_tensor(np.random.RandomState(14).standard_normal(
+        ovl.space.m_dual), device=dev))
+    y_o, y_f = ovl.apply(Lam), flat.apply(Lam)
+    out.update(apply_err=float((y_o - y_f).abs().max() / y_f.abs().max()),
+               apply_ms=cuda_ms(lambda: ovl.apply(Lam), reps=5, warmup=1),
+               offsets=len(ovl.plan.offsets), nb=ovl.plan.nb, ns_loc=ovl.plan.ns_loc)
+    return out
+
+
+def worker_14d(mesh, dev):
+    import numpy as np
+    import torch
+
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.core.sell import gather_apply
+    from permon_tpu_torch.feti.large import feti_solve_sparse
+    from permon_tpu_torch.feti.solve import FetiOptions
+    from permon_tpu_torch.problems import assembled_system, build_sparse
+
+    cells, grid = TWIN
+    torch.cuda.reset_peak_memory_stats(dev)
+    gather_apply.launches = 0
+    res = feti_solve_sparse(build_sparse(cells, grid), FetiOptions(gluing="nonred", mesh=mesh),
+                            tol=Tolerances(rtol=1e-5), kplus_dtype=torch.float32,
+                            kplus_refine=2, primal_refine=1, device=dev)
+    A, b = assembled_system(cells)
+    return dict(launches=gather_apply.launches, peak=torch.cuda.max_memory_allocated(dev),
+                its=[r.iterations for r in res.results], reason=res.result.reason,
+                resid=np.linalg.norm(A @ res.x_global - b) / np.linalg.norm(b))
+
+
+def phase_kplus_batches(dev):
+    """14k (``--only=14k``, no part of the default run): why phase 14's
+    one-device references apply K+ in the ranks' blocks.  On the north
+    star's factors (f32 and f64): the factors of a block of subdomains made
+    alone against the same block of the one-call factorization, and a
+    block's apply against the same subdomains of the one-call apply,
+    bitwise; the apply's time by the subdomains a call covers."""
+    import numpy as np
+    import torch
+
+    from permon_tpu_torch.core.band import BandCholInv
+    from permon_tpu_torch.feti.large import assemble_qp_sparse
+    from permon_tpu_torch.feti.solve import FetiOptions
+    from permon_tpu_torch.parallel.dist import shard_band
+    from permon_tpu_torch.problems import build_sparse
+
+    prob = build_sparse(*NORTH_STAR)
+    for dt in (torch.float32, torch.float64):
+        qp, kp, NB, _ = assemble_qp_sparse(prob, FetiOptions(gluing="nonred"), kplus_dtype=dt,
+                                           kplus_refine=2, device=dev)
+        kp = kp.replace(refine=0)
+        ns, nlp = qp.A.ns, qp.A.nlp
+        x = torch.as_tensor(np.random.RandomState(0).standard_normal(ns * nlp), device=dev)
+        y = kp.mv(x)
+        for lo, hi in ((0, ns // 2), (ns // 2, ns), (ns // 4, ns // 2)):
+            part = shard_band(kp, lo, hi)
+            alone = BandCholInv.from_blockdia(part.op, NB, dtype=dt)
+            ys = part.mv(x[lo * nlp:hi * nlp])
+            log(f"[14k] {dt} subdomains [{lo}, {hi}): factors alone bitwise "
+                f"{torch.equal(alone.Dinv, part.Dinv) and torch.equal(alone.F, part.F)}; "
+                f"apply in one call of {hi - lo} against the one call of {ns}: bitwise "
+                f"{torch.equal(ys, y[lo * nlp:hi * nlp])}, max abs diff "
+                f"{float((ys - y[lo * nlp:hi * nlp]).abs().max()):.3e}")
+        t = {b: cuda_ms(lambda: (kp if b == ns else blocked_kplus(kp, b)).mv(x), reps=10)
+             for b in (ns, ns // 2, ns // 4)}
+        log(f"[14k] {dt} K+ apply: {t[ns]:.3f} ms in calls of {ns}, {t[ns // 2]:.3f} of "
+            f"{ns // 2}, {t[ns // 4]:.3f} of {ns // 4}")
+
+
+def rank_worker(tag, out_dir):
+    """One rank of phase 14's run ``tag`` (started by :func:`run_ranks`):
+    14a-c on gloo, several ranks time-sharing the one card ('duplicate
+    GPU': NCCL takes one rank per card), 14d on NCCL with one rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from permon_tpu_torch.parallel import make_mesh, make_mesh2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    if tag != "14d":
+        dist.init_process_group("cuda:gloo,cpu:gloo")
+    mesh = make_mesh2((2, 2), device=dev) if tag == "14b" else make_mesh(device=dev)
+    out = {"14a": worker_14a, "14b": worker_14b, "14c": worker_14c, "14d": worker_14d}[tag](
+        mesh, dev)
+    out.update(rank=mesh.rank, backend=mesh.backend, staged=",".join(mesh.staged))
+    np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"),
+             **{k: np.asarray(v) for k, v in out.items()})
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_ranks(dev, main_ref=None, leaf_ref=None, twin_its=None):
+    """14: the multi-device layer (permon_tpu_torch.parallel) with its ranks
+    on the one card: (a) the north star sharded over 2 ranks, (b) on the
+    (2, 2) mesh with the coarse factor on redundancy groups, (c) 12a's
+    problem on the leaf path over 2 ranks with the overlapped exchange,
+    (d) the twin on NCCL with one rank.  (a) and (b) are held against
+    one-device runs made here whose K+ makes the ranks' calls (phase 14k
+    says why), (a) compared with phase 6 (``main_ref``, when given); (c) and (d) are held
+    against 13a and phase 5 (``leaf_ref``: run here when not given;
+    ``twin_its``).  Returns the ranks' gather_apply launches."""
+    import numpy as np
+    import torch
+
+    from permon_tpu_torch.problems import assembled_system
+
+    def one_device(cells_grid, nranks):
+        """The one-device run of 14a's options whose K+ makes the calls of
+        one of ``nranks`` ranks (cuBLAS picks its batched GEMV by the
+        batch count, so phase 6's 64-subdomain calls round otherwise)."""
+        torch.cuda.empty_cache()
+        solver, out = sparse_main_path(None, dev, cells_grid,
+                                       block=int(np.prod(cells_grid[1])) // nranks)
+        del solver
+        torch.cuda.empty_cache()
+        return dict(its1=[int(i) for i in out["its1"]], its2=[int(i) for i in out["its2"]],
+                    x1=out["x1"], ms_per_it=1e3 * out["t_warm"][0] / sum(out["its2"]))
+
+    ref = one_device(NORTH_STAR, 2)
+    launches = 0
+
+    # -- 14a: the north star over 2 ranks ------------------------------
+    ranks = run_ranks("14a", 2)
+    _rank_lines("14a", ranks)
+    r0 = ranks[0]
+    its1, its2, its3 = ([int(i) for i in _same(ranks, k)] for k in ("its1", "its2", "its3"))
+    x1 = _same(ranks, "x1")
+    A, b = assembled_system(NORTH_STAR[0])
+    resid = np.linalg.norm(A @ x1 - b) / np.linalg.norm(b)
+    dx = np.abs(x1 - ref["x1"]).max() / np.abs(ref["x1"]).max()
+    t_warm = min(float(t) for t in r0["t_warm"])
+    ms_it = 1e3 * float(r0["t_warm"][0]) / sum(its2)
+    ar_ms = ", ".join(f"{float(r['allreduce_ms']):.3f}" for r in ranks)
+    log(f"[14a] north star {NORTH_STAR[0]} on {NORTH_STAR[1]} over 2 ranks ({int(r0['ns_loc'])} "
+        f"subdomains each): iterations {its1} / {its2} / {its3} (one device, K+ in the "
+        f"ranks' batches: {ref['its1']} / {ref['its2']}), max |x - x_1dev| / max |x_1dev| "
+        f"{dx:.3e}, assembled residual {resid:.3e}")
+    if main_ref is not None:  # phase 6: one K+ call over all 64 subdomains
+        d6 = np.abs(x1 - main_ref["x1"]).max() / np.abs(main_ref["x1"]).max()
+        log(f"[14a] against phase 6 (K+ in one batch of 64): iterations {main_ref['its1']} / "
+            f"{main_ref['its2']}, max |x - x_6| / max |x_6| {d6:.3e} (reported, not held)")
+    log(f"[14a] host setup {float(r0['host_setup']):.3f} s, factorization "
+        f"{float(r0['factor']):.3f} s, first solve {float(r0['t_first']):.3f} s, warm re-solves "
+        f"{', '.join(f'{float(t):.3f}' for t in r0['t_warm'])} s; {ms_it:.3f} ms per dual "
+        f"iteration (one device: {ref['ms_per_it']:.3f}); one F apply's all_reduce of "
+        f"m = {int(r0['m'])} f64: {ar_ms} ms (median per rank); the two ranks time-share one "
+        f"card: collective overhead and "
+        f"correctness, not scaling")
+    if not all(int(x) == 2 for x in _same(ranks, "reasons")):
+        raise AssertionError("14a: a dual solve did not reach reason 2")
+    if its1 != list(ref["its1"]) or its2 != list(ref["its2"]):
+        raise AssertionError(f"14a: counts {its1} / {its2} against {ref['its1']} / "
+                             f"{ref['its2']}")
+    if not dx <= 1e-12 or not resid <= 1e-6:
+        raise AssertionError(f"14a: x differs by {dx}, residual {resid}")
+    if not all(r["tables_equal"].all() for r in ranks):
+        raise AssertionError("14a: a rank's table differs from gather_apply_plain")
+    log(f"[14a] each rank's B, B' and copy-sum tables through the kernel: bitwise equal to "
+        f"gather_apply_plain; warm re-solve {t_warm:.3f} s")
+    launches += sum(int(r["launches"]) for r in ranks)
+
+    # -- 14b: redundancy groups on the (2, 2) mesh ---------------------
+    # the ranks call K+ with 16 subdomains (14a: 32): the one-device run
+    # that makes those calls holds the mesh's run with the coarse factor
+    # replicated, and that run holds the one with redundancy groups
+    refb = one_device(REDUNDANCY_PROBLEM, 4)
+    ranks = run_ranks("14b", 4)
+    _rank_lines("14b", ranks)
+    pits1, pits2 = ([int(i) for i in _same(ranks, f"plain_{k}")] for k in ("its1", "its2"))
+    its1b, its2b = ([int(i) for i in _same(ranks, k)] for k in ("its1", "its2"))
+    err = max(float(r["cp_err"]) for r in ranks)
+    xp, xb = _same(ranks, "plain_x1"), _same(ranks, "x1")
+    A, b = assembled_system(REDUNDANCY_PROBLEM[0])
+    residb = np.linalg.norm(A @ xb - b) / np.linalg.norm(b)
+    dxp = np.abs(xp - refb["x1"]).max() / np.abs(refb["x1"]).max()
+    dxr = np.abs(xb - xp).max() / np.abs(xp).max()
+    log(f"[14b] {'north star' if REDUNDANCY_PROBLEM == NORTH_STAR else 'twin'} "
+        f"{REDUNDANCY_PROBLEM[0]} on the (2, 2) mesh, coarse factor replicated: iterations "
+        f"{pits1} / {pits2} (one device, K+ in the ranks' calls of 16: {refb['its1']} / "
+        f"{refb['its2']}), max |x - x_1dev| / max |x_1dev| {dxp:.3e}")
+    log(f"[14b] with qppf_redundancy: iterations {its1b} / {its2b}, max |x - x_replicated| / "
+        f"max |x_replicated| {dxr:.3e}; RedundantCoarse (kc {int(ranks[0]['kc'])}, "
+        f"{int(ranks[0]['kb'])} rows a rank) against cho_solve: max rel. error {err:.3e}; "
+        f"assembled residual {residb:.3e}; warm re-solve {float(ranks[0]['t_warm'][0]):.3f} s")
+    dxb = 0.0
+    if REDUNDANCY_PROBLEM == NORTH_STAR:
+        dxb = np.abs(xb - x1).max() / np.abs(x1).max()
+        log(f"[14b] against 14a (K+ in calls of 32): iterations {its1} / {its2}, max |x - x_14a| "
+            f"/ max |x_14a| {dxb:.3e}")
+    if not all(int(x) == 2 for x in _same(ranks, "reasons")) or not all(
+            int(x) == 2 for x in _same(ranks, "plain_reasons")) or not err <= 1e-12 \
+            or not residb <= 1e-6:
+        raise AssertionError(f"14b: reasons {_same(ranks, 'reasons')}, coarse error {err}, "
+                             f"residual {residb}")
+    if pits1 != refb["its1"] or pits2 != refb["its2"] or not dxp <= 1e-12:
+        raise AssertionError(f"14b, coarse factor replicated: counts {pits1} / {pits2} against "
+                             f"{refb['its1']} / {refb['its2']}, x {dxp} from the one-device run")
+    # the redundancy groups' blocked substitution rounds otherwise than the
+    # replicated cho_solve: the first solve and each first pass count alike,
+    # a re-solve's defect pass within one (readings in PERF.md)
+    if its1b != pits1 or its2b[0] != pits2[0] or abs(its2b[1] - pits2[1]) > 1 \
+            or not dxr <= X_14B_RED or not dxb <= X_14B_14A:
+        raise AssertionError(f"14b: counts {its1b} / {its2b} against {pits1} / {pits2} "
+                             f"replicated, x {dxr} from it, {dxb} from 14a")
+    launches += sum(int(r["launches"]) + int(r["plain_launches"]) for r in ranks)
+
+    # -- 14c: the overlapped leaf exchange over 2 ranks ----------------
+    if leaf_ref is None:  # --only=14: 13a's single-device run
+        from permon_tpu_torch.core.convergence import Tolerances
+        from permon_tpu_torch.feti.solve import FetiOptions, FetiSolver
+        from permon_tpu_torch.problems import build_ex71
+
+        prob = build_ex71(*DENSE_POISSON)
+        r = FetiSolver(prob, FetiOptions(throughput=True), device=dev).solve(
+            tol=Tolerances(rtol=1e-5))
+        leaf_ref = dict(its=r.result.iterations, x=r.x_global)
+        del prob, r
+        torch.cuda.empty_cache()
+    ranks = run_ranks("14c", 2)
+    _rank_lines("14c", ranks)
+    r0 = ranks[0]
+    its = int(_same(ranks, "its"))
+    x1 = _same(ranks, "x1")
+    dxc = np.abs(x1 - leaf_ref["x"]).max() / np.abs(leaf_ref["x"]).max()
+    errc = max(float(r["apply_err"]) for r in ranks)
+    apply_ms = ", ".join(f"{float(r['apply_ms']):.3f}" for r in ranks)
+    log(f"[14c] 12a's problem on the leaf path over 2 ranks ({int(r0['ns_loc'])} subdomains, "
+        f"{int(r0['nb'])} boundary, {int(r0['offsets'])} offset(s) each): {its} iterations "
+        f"(13a: {leaf_ref['its']}), max |x - x_13a| / max |x_13a| {dxc:.3e}; overlapped apply "
+        f"against the flat one {errc:.3e}, {apply_ms} ms an apply; first solve "
+        f"{float(r0['t_first']):.3f} s, warm {float(r0['t_warm']):.3f} s")
+    if not all(int(x) == 2 for x in _same(ranks, "reasons")):
+        raise AssertionError("14c: a solve did not reach reason 2")
+    if its != LEAF_ITS or its != leaf_ref["its"] or not dxc <= 1e-10 or not errc <= 1e-12:
+        raise AssertionError(f"14c: {its} iterations (13a {leaf_ref['its']}), dx {dxc}, "
+                             f"apply error {errc}")
+    launches += sum(int(r["launches"]) for r in ranks)
+
+    # -- 14d: NCCL, one rank -------------------------------------------
+    ranks = run_ranks("14d", 1)
+    _rank_lines("14d", ranks)
+    its_d = [int(i) for i in ranks[0]["its"]]
+    log(f"[14d] twin {TWIN[0]} on NCCL, one rank: iterations {its_d} (phase 5: {twin_its}), "
+        f"reason {int(ranks[0]['reason'])}, assembled residual {float(ranks[0]['resid']):.3e}")
+    if ranks[0]["backend"] != "nccl" or int(ranks[0]["reason"]) != 2 or not float(
+            ranks[0]["resid"]) < 1e-8:
+        raise AssertionError("14d: the NCCL run failed")
+    if twin_its is not None and its_d != list(twin_its):
+        raise AssertionError(f"14d: counts {its_d} against phase 5's {twin_its}")
+    if twin_its is None and not 22 <= its_d[0] <= 24:
+        raise AssertionError(f"14d: {its_d} iterations")
+    launches += int(ranks[0]["launches"])
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -2551,6 +3063,9 @@ def main():
         print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    opts = dict(a.split("=", 1) for a in sys.argv[1:] if "=" in a)
+    if "--rank-worker" in opts:  # one rank of phase 14 (run_ranks)
+        return rank_worker(opts["--rank-worker"], opts["--out"])
     from permon_tpu_torch.core import sell
     from permon_tpu_torch.problems import build_sparse
 
@@ -2581,7 +3096,6 @@ def main():
         bundle = build_obstacle_elasticity(*ELASTICITY)
         return bundle, time.perf_counter() - t0
 
-    opts = dict(a.split("=", 1) for a in sys.argv[1:] if "=" in a)
     if "--only" in opts:  # development: the named phases alone
         for name, run in (("9", lambda: phase_elasticity(*build_elastic(), dev)),
                           ("9c", lambda: phase_elastic_smalbe(
@@ -2592,6 +3106,8 @@ def main():
                           ("12", lambda: phase_dense(dev)),
                           ("12c", lambda: phase_dense_reference(dev)),
                           ("13", lambda: phase_leaf(dev)),
+                          ("14", lambda: phase_ranks(dev)),
+                          ("14k", lambda: phase_kplus_batches(dev)),
                           ("11", lambda: phase_qp_rest(*phase_qp_only(dev))),
                           ("11c", lambda: [phase_ex3(int(n), dev)
                                            for n in opts.get("--ex3-n", str(EX3_N)).split(",")]),
@@ -2628,8 +3144,8 @@ def main():
     if "--kernels-only" in sys.argv[1:]:  # development: stop after the kernel phases
         return 0
 
-    phase_twin(dev)
-    launches = phase_main(prob, t_host_prob, dev)
+    twin_its = phase_twin(dev)
+    launches, main_ref = phase_main(prob, t_host_prob, dev)
     del prob
     sell_launches, res64, t64 = phase_qp(jb, jb_rcm, t_host_jb, dev)
     sell_launches += phase_qp_rest(jb_rcm, res64, t64, dev)
@@ -2641,10 +3157,11 @@ def main():
     launches += phase_band_coarse(dev)
     n12, rows = phase_dense(dev)
     launches += n12
-    g13, s13 = phase_leaf(dev, rows, jb_rcm, qp_its)
+    g13, s13, leaf_ref = phase_leaf(dev, rows, jb_rcm, qp_its)
     del rows
     launches += g13
     sell_launches += s13
+    launches += phase_ranks(dev, main_ref, leaf_ref, twin_its)
 
     print(json.dumps({"kernels": [
         {"name": "gather_apply", "route": "cuda",

@@ -41,13 +41,14 @@ coarse GG', ``reorder_rcm``); the band module
 database (:class:`Options`, :func:`solve_from_options`), tracing with the
 :class:`Timer` wrapper (:mod:`permon_tpu_torch.sys`), the text
 :mod:`~permon_tpu_torch.viewers`, :mod:`permon_tpu_torch.utils.checkpoint`
-and the SVM (:mod:`permon_tpu_torch.svm`).  Still to come (multi-device,
-ROADMAP.md queue A item 5), each raising ``NotImplementedError``:
-``FetiOptions(mesh=...)``, ``FetiOptions(qppf_redundancy=True)``,
-``leaf_dual_qp(mesh=...)`` and the distributed coarse factor
-``Projector.cp_dist`` (interop).  Entry points run on the card:
-``device=None`` means the first CUDA device and raises without one; pass
-``device="cpu"`` for the CPU.
+and the SVM (:mod:`permon_tpu_torch.svm`); and the multi-device layer
+(:mod:`permon_tpu_torch.parallel`, on ``torch.distributed``: one process
+per rank, ``make_mesh`` / ``make_mesh2``), with ``FetiOptions(mesh=...)``
+on the large, dense and leaf paths, ``FetiOptions(qppf_redundancy=True)``,
+``leaf_dual_qp(mesh=...)`` and the redundancy-group coarse factor
+``Projector.cp_dist``.  Entry points run on the card: ``device=None``
+means the first CUDA device (under a mesh, the rank's) and raises without
+one; pass ``device="cpu"`` for the CPU.
 """
 
 from __future__ import annotations

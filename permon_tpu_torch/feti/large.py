@@ -38,11 +38,20 @@ star, or ``coarse='sparse'``) every solve, the first included, runs
 :func:`make_fast_solve_fn`: the whole chain and the defect correction on
 the device, reassembly through a fixed-order gather table (no scatter-add).
 
+Under ``FetiOptions(mesh=...)`` (:mod:`permon_tpu_torch.parallel`, one
+process per rank) every rank does the host setup of the whole problem and
+puts only its own subdomains on its device: the stencil, the band factors
+and their regularization, b, the rows of R and its per-rank gather tables;
+the dual solve runs replicated, each F apply with one ``all_reduce``, and
+the reassembly of the global solution gathers the ranks' decomposed
+solutions (one ``all_gather``) and sums each dof's copies in the
+one-device order, so x_global is the one-device result, bit for bit.
+``qppf_redundancy`` puts the coarse factor on redundancy groups
+(parallel/coarse.py).
+
 As in the JAX package, ``FetiOptions.precision`` is not read here and any
 ``nullspace`` but 'rbm' is the constant one; ``orth_G``, ``project=False``
-for a linear solve and ``throughput`` are rejected in its words.  Outside
-the slice (meshes, ``qppf_redundancy``) the functions raise
-``NotImplementedError``; see ROADMAP.md.
+for a linear solve and ``throughput`` are rejected in its words.
 """
 
 from __future__ import annotations
@@ -62,6 +71,8 @@ from ..core.detred import det_sum, deterministic_mode
 from ..core.dia import BlockDia, RegularizedBlockDia
 from ..core.extension import GatherTable, SubdomainExtension, copy_sum_table
 from ..core.linop import Ell, LinearOperator, VStack
+from ..parallel.dist import (all_gather, all_reduce_sum, check_mesh, global_rows, operator_mesh,
+                             shard_blockdia, shard_qp_sparse)
 from ..pc.dual import PCDual
 from ..qp.projector import Projector
 from ..qp.qp import QP
@@ -154,18 +165,14 @@ def reorder_rcm(prob: SparseFetiProblem) -> SparseFetiProblem:
 
 
 def _check_slice(opts: FetiOptions, contact: bool) -> None:
-    """Raise for every option the port does not cover yet (ROADMAP.md), and,
-    in the JAX package's words, for the three it rejects on the large path.
-    As there, ``precision`` is not read on the large path and every
-    ``nullspace`` but 'rbm' takes the constant nullspace."""
-    checks = [
-        (opts.mesh is not None, "FetiOptions(mesh=...) (multi-device)"),
-        (opts.qppf_redundancy, "FetiOptions(qppf_redundancy=True)"),
-        (opts.coarse not in ("auto", "dense", "sparse"), f"coarse={opts.coarse!r}"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise not_ported(what)
+    """Raise for an option the port does not cover (ROADMAP.md), for a
+    ``mesh`` that is not a mesh (TypeError), and, in the JAX package's
+    words, for the three it rejects on the large path.  As there,
+    ``precision`` is not read on the large path and every ``nullspace`` but
+    'rbm' takes the constant nullspace."""
+    check_mesh(opts.mesh)
+    if opts.coarse not in ("auto", "dense", "sparse"):
+        raise not_ported(f"coarse={opts.coarse!r}")
     if opts.pc_dual not in ("none", "lumped"):
         raise ValueError(f"pc_dual {opts.pc_dual!r}: 'none' or 'lumped'")
     if opts.throughput:
@@ -341,7 +348,11 @@ def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(
     import scipy.sparse as sp
 
     _check_slice(opts, contact=BI is not None)
-    dev = resolve_device(device)
+    mesh = opts.mesh
+    dev = _rank_device(opts, device)
+    # under a mesh every rank builds the whole problem on the host and
+    # parallel/dist.py puts its own subdomains on its device
+    host = dev if mesh is None else torch.device("cpu")
     t0 = time.perf_counter()
     ns, nl = prob.ns, prob.nl
     # a block that is CSR already is kept as the object it is: equal blocks
@@ -374,9 +385,7 @@ def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(
     blocks_coo.append((gr + row_off, gc, gv))
     cE_parts.append(np.zeros(ng))
     rows, cols, vals = (np.concatenate([t[i] for t in blocks_coo]) for i in range(3))
-    BE = _device_extension(
-        SubdomainExtension.from_coo(rows, cols, vals, m=row_off + ng, ns=ns, nl=nlp),
-        opts, dev)
+    BE = SubdomainExtension.from_coo(rows, cols, vals, m=row_off + ng, ns=ns, nl=nlp)
     cE_arr = np.concatenate(cE_parts)
 
     if opts.nullspace == "rbm":
@@ -386,13 +395,13 @@ def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(
         bases = None
         rr, rc, rv, k = constant_nullspace_columns(probp, fixed_mask)
     R = Ell.from_scipy(sp.coo_matrix((rv, (rr, rc)), shape=(ns * nlp, k)),
-                       device=dev) if k else None
+                       device=host) if k else None
 
     # Kreg = K + rho R_I (R_I'R_I)^{-1} R_I' stays an EXPLICIT rank-k
     # correction (core/dia.RegularizedBlockDia) injected by the factor loop;
     # qp.A — and with it the lumped preconditioner M = B K B' — keeps the
     # original singular K (feti/large.py:359-412)
-    A = BlockDia.from_scipy_blocks(K_blocks, nlp=nlp, dtype=op_dtype, device=dev)
+    A = BlockDia.from_scipy_blocks(K_blocks, nlp=nlp, dtype=op_dtype, device=host)
     reg = []
     rhos = _per_distinct(K_blocks, gershgorin_max_eig_csr)
     for s in range(ns):
@@ -422,11 +431,23 @@ def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(
         idx_arr[s, : len(I_loc)] = I_loc
         q_arr[s, : len(I_loc), : len(I_loc)] = Q
     Areg = RegularizedBlockDia(
-        base=A, idx=torch.as_tensor(idx_arr, device=dev),
-        q=torch.as_tensor(q_arr, device=dev),
-        bi=torch.as_tensor(bi_arr, device=dev), NB=NB,
+        base=A, idx=torch.as_tensor(idx_arr, device=host),
+        q=torch.as_tensor(q_arr, device=host),
+        bi=torch.as_tensor(bi_arr, device=host), NB=NB,
     )
-    b = torch.as_tensor(b_loc.reshape(-1), device=dev)
+    # an all-zero cE carries no information: drop it so the pipeline skips
+    # homogenize_eq (one A apply + coarse solve) entirely
+    qp = QP(A=A, b=torch.as_tensor(b_loc.reshape(-1), device=host), BE=BE,
+            cE=torch.as_tensor(cE_arr, device=dev) if cE_arr.any() else None, R=R)
+    if BI is not None:
+        qp = qp.replace(BI=BI.replace(nl=nlp, gB=None, gBt=None),
+                        cI=None if cI is None else torch.as_tensor(
+                            cI, dtype=torch.float64, device=dev))
+    if mesh is not None:
+        qp, _, _ = shard_qp_sparse(qp, None, mesh, device=dev)
+        Areg = shard_blockdia(Areg, *mesh.subdomains(ns), base=qp.A)
+    qp = qp.replace(BE=_device_extension(qp.BE, opts, dev),
+                    BI=None if qp.BI is None else _device_extension(qp.BI, opts, dev))
     _sync(dev)
     t1 = time.perf_counter()
     kplus = BandCholInv.from_blockdia(Areg, NB, dtype=as_torch_dtype(kplus_dtype),
@@ -434,15 +455,14 @@ def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(
     _sync(dev)
     if timings is not None:
         timings.update(host_setup_s=t1 - t0, factor_s=time.perf_counter() - t1)
-    # an all-zero cE carries no information: drop it so the pipeline skips
-    # homogenize_eq (one A apply + coarse solve) entirely
-    qp = QP(A=A, b=b, BE=BE, cE=torch.as_tensor(cE_arr, device=dev) if cE_arr.any() else None,
-            R=R)
-    if BI is not None:
-        BIp = _device_extension(BI.replace(nl=nlp, gB=None, gBt=None), opts, dev)
-        qp = qp.replace(BI=BIp, cI=None if cI is None else torch.as_tensor(
-            cI, dtype=torch.float64, device=dev))
     return qp, kplus, NB, elim
+
+
+def _rank_device(opts: FetiOptions, device) -> torch.device:
+    """``device``, or under a mesh without one the rank's device."""
+    if opts.mesh is not None and device is None:
+        return opts.mesh.device
+    return resolve_device(device)
 
 
 def _rbm_bases(prob: SparseFetiProblem, fixed_mask: np.ndarray, nlp: int):
@@ -561,7 +581,12 @@ def feti_solve_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions()
         if kplus.refine and kplus.op is not None:
             kplus_post = kplus
             kplus = kplus.replace(refine=0)
-        return _run_prepared_sparse(prob, opts, tol, qp, kplus, kplus_post, primal_refine)
+        # the mesh / redundancy coarse layout on the function path too
+        # (large.py:655-657)
+        pf = build_sparse_pf(qp, opts) if (
+            opts.mesh is not None and opts.qppf_redundancy) else None
+        return _run_prepared_sparse(prob, opts, tol, qp, kplus, kplus_post, primal_refine,
+                                    pf=pf)
 
 
 def _primal_defect_rhs(prob, K_csr, x_global, nlp):
@@ -577,35 +602,48 @@ def _primal_defect_rhs(prob, K_csr, x_global, nlp):
     return r_pad.reshape(-1), u_lift
 
 
+def _assemble_mean(x_dec: torch.Tensor, prob, nlp: int, mesh) -> np.ndarray:
+    """The global mean of the decomposed solution's copies on the host;
+    under a mesh ``x_dec`` holds this rank's subdomains and the ranks'
+    blocks are gathered first, so the copies add up in the one-device
+    order."""
+    if mesh is not None:
+        x_dec = all_gather(x_dec, mesh)
+    u = x_dec.cpu().numpy().reshape(-1, nlp)[:, : prob.nl]
+    return assemble_global_mean(u, prob.l2g, prob.n_global)
+
+
 def _run_prepared_sparse(prob, opts, tol, qp, kplus, kplus_post, primal_refine,
                          pf=None) -> FetiResult:
     """1 + primal_refine dual solves of an assembled, factorized problem,
-    the defect correction on the host; ``pf`` reuses a coarse factor."""
+    the defect correction on the host; ``pf`` reuses a coarse factor.
+    Under a mesh the host residual is computed for every subdomain on every
+    rank and each rank takes its own rows."""
     import scipy.sparse as sp
 
+    mesh = opts.mesh
     sol, res, dual = _solve_prepared(qp, kplus, opts, tol, kplus_post=kplus_post, pf=pf)
     results = [res]
     nlp = qp.BE.nl
-    u = sol.x.cpu().numpy().reshape(prob.ns, nlp)
-    x_global = assemble_global_mean(u[:, : prob.nl], prob.l2g, prob.n_global)
+    lo, hi = (0, prob.ns) if mesh is None else mesh.subdomains(prob.ns)
+    x_global = _assemble_mean(sol.x, prob, nlp, mesh)
     if primal_refine:
         K_csr = [sp.csr_matrix(K) for K in prob.K_blocks]
     for _ in range(primal_refine):
         r_flat, u_lift = _primal_defect_rhs(prob, K_csr, x_global, nlp)
-        qp_r = qp.replace(b=torch.as_tensor(r_flat, device=qp.b.device))
+        qp_r = qp.replace(b=torch.as_tensor(r_flat[lo * nlp:hi * nlp], device=qp.b.device))
         if qp.cE is not None:
             # the correction must close the remaining constraint gap too:
             # BE dx = cE - BE u  (u = consistent lift, so gluing rows of
             # BE u vanish and only Dirichlet rows contribute)
-            u_pad = np.zeros((prob.ns, nlp))
-            u_pad[:, : prob.nl] = u_lift
+            u_pad = np.zeros((hi - lo, nlp))
+            u_pad[:, : prob.nl] = u_lift[lo:hi]
             qp_r = qp_r.replace(cE=qp.cE - qp.BE.mv(
                 torch.as_tensor(u_pad.reshape(-1), device=qp.b.device)))
         sol_r, res, dual = _solve_prepared(qp_r, kplus, opts, tol,
                                            kplus_post=kplus_post, pf=dual.pf)
         results.append(res)
-        du = sol_r.x.cpu().numpy().reshape(prob.ns, nlp)
-        x_global = x_global + assemble_global_mean(du[:, : prob.nl], prob.l2g, prob.n_global)
+        x_global = x_global + _assemble_mean(sol_r.x, prob, nlp, mesh)
     return FetiResult(x_global=x_global, u_decomposed=sol.x, solution=sol, result=res,
                       qp=qp, dual_qp=dual, results=results)
 
@@ -631,10 +669,13 @@ class BlockCoarse(LinearOperator):
     B: Any  # extension operator (m, ns*nlp)
     k: int
     inv: torch.Tensor = None  # (k,) int64: the flat (s*kf + slot) owner of each column
+    #: under a mesh (Rb, cols and B this rank's subdomains): ``inv`` points
+    #: the columns of other ranks at a zero pad and ``mv`` all-reduces
+    mesh: Any = None
 
     def __post_init__(self):
         if self.inv is None:
-            self.inv = _column_owners(self.cols, self.k)
+            self.inv = _column_owners(self.cols, self.k, partial=self.mesh is not None)
 
     @property
     def shape(self):
@@ -644,7 +685,11 @@ class BlockCoarse(LinearOperator):
         ns, nlp, kf = self.Rb.shape
         w = self.B.rmv(v).reshape(ns, nlp).to(self.Rb.dtype)
         s = det_sum(self.Rb * w[:, :, None], dim=1)  # (ns, kf), fixed tree over the dofs
-        return s.reshape(-1)[self.inv].to(v.dtype)
+        if self.mesh is None:
+            return s.reshape(-1)[self.inv].to(v.dtype)
+        # each column has one owner: the other ranks add exact zeros
+        part = torch.cat([s.reshape(-1), s.new_zeros(1)])[self.inv]
+        return all_reduce_sum(part, self.mesh).to(v.dtype)
 
     def rmv(self, w):
         ns, nlp, kf = self.Rb.shape
@@ -655,14 +700,22 @@ class BlockCoarse(LinearOperator):
         return self.B.mv(y.reshape(-1)).to(w.dtype)
 
 
-def _column_owners(cols: torch.Tensor, k: int) -> torch.Tensor:
+def _column_owners(cols: torch.Tensor, k: int, partial: bool = False) -> torch.Tensor:
     """The flat slot of each coarse column from the (ns, kf) table ``cols``
     (pad = k); raises unless the non-pad slots are a bijection onto
-    0..k-1."""
+    0..k-1.  ``partial`` (a rank's block under a mesh): each column is owned
+    at most once, and the columns owned elsewhere get the pad slot
+    ns*kf."""
     flat = cols.reshape(-1)
     slots = torch.nonzero(flat < k)[:, 0]
     owned = flat[slots]
     order = torch.argsort(owned)
+    if partial:
+        if len(torch.unique(owned)) != len(owned):
+            raise ValueError("BlockCoarse: a coarse column is owned twice")
+        inv = torch.full((k,), flat.numel(), dtype=torch.int64, device=cols.device)
+        inv[owned] = slots
+        return inv
     if len(slots) != k or not torch.equal(owned[order],
                                           torch.arange(k, device=cols.device)):
         raise ValueError("BlockCoarse: the slots do not own each coarse column exactly once")
@@ -703,42 +756,57 @@ def block_coarse_from_R(R, B):
     Rc.sum_duplicates()
     Rc.sort_indices()
     nnz_col = np.diff(Rc.indptr)
-    if k == 0 or (nnz_col == 0).any():
+    # under a mesh R holds this rank's rows: the other ranks' columns are empty
+    mesh = operator_mesh(B)
+    if k == 0 or (mesh is None and (nnz_col == 0).any()):
         return None
-    owner = Rc.indices[Rc.indptr[:-1]].astype(np.int64) // nlp
-    if (Rc.indices[Rc.indptr[1:] - 1] // nlp != owner).any():
+    mine = np.flatnonzero(nnz_col > 0)
+    owner = Rc.indices[Rc.indptr[mine]].astype(np.int64) // nlp
+    if (Rc.indices[Rc.indptr[mine + 1] - 1] // nlp != owner).any():
         return None  # not block-diagonal: the caller falls back
     per_sub = np.bincount(owner, minlength=ns)
     kf = max(int(per_sub.max()), 1)
     # slot of column j: its rank among its subdomain's columns, ascending j
     order = np.argsort(owner, kind="stable")
-    slot = np.empty(k, dtype=np.int64)
-    slot[order] = np.arange(k) - (np.cumsum(per_sub) - per_sub)[owner[order]]
+    slot = np.empty(len(mine), dtype=np.int64)
+    slot[order] = np.arange(len(mine)) - (np.cumsum(per_sub) - per_sub)[owner[order]]
     cols = np.full((ns, kf), k, dtype=np.int64)
-    cols[owner, slot] = np.arange(k)
+    cols[owner, slot] = mine
     Rb = np.zeros((ns, nlp, kf))
-    col_of = np.repeat(np.arange(k), nnz_col)
+    col_of = np.repeat(np.arange(len(mine)), nnz_col[mine])
     Rb[owner[col_of], Rc.indices % nlp, slot[col_of]] = Rc.data
     dev = R.vals.device
     return BlockCoarse(Rb=torch.as_tensor(Rb, device=dev), cols=torch.as_tensor(cols, device=dev),
-                       B=B, k=int(k))
+                       B=B, k=int(k), mesh=mesh)
 
 
 def build_sparse_pf(qp, opts: FetiOptions):
     """Coarse projector for the sparse-coarse regime (host sparse G = R'B'
     and Gram over B = [BE; BI], qp/transforms._sparse_coarse); None outside
-    it (small problems keep the dense device Gram of the dualize chain)."""
+    it (small problems keep the dense device Gram of the dualize chain).
+    Under a mesh (large.py:827-865) the coarse side is replicated on every
+    rank, or with ``qppf_redundancy`` its GG' factor lives on redundancy
+    groups over the mesh's last axis (parallel/coarse.py)."""
     if qp.R is None or qp.R.shape[1] == 0 or opts.coarse == "dense":
         return None
     B = qp.BE if qp.BI is None else VStack((qp.BE, qp.BI))
     k = qp.R.shape[1]
-    big = k * (qp.R.shape[0] + B.shape[0]) > SPARSE_COARSE_THRESHOLD
+    big = k * (global_rows(qp.R) + B.shape[0]) > SPARSE_COARSE_THRESHOLD
     if not (big or opts.coarse == "sparse"):
         return None
     sc = _sparse_coarse(qp.R, B)
     if sc is None:
         return None
     G, gram = sc
+    mesh = opts.mesh
+    if mesh is not None and opts.qppf_redundancy:
+        from ..parallel.coarse import redundant_projector
+
+        return redundant_projector(G, gram, mesh, axis=mesh.axis_names[-1])
+    if mesh is not None:
+        from ..parallel.dist import replicate_projector
+
+        return replicate_projector(Projector.create(G, gram=gram), mesh)
     return Projector.create(G, gram=gram)
 
 
@@ -754,24 +822,35 @@ class ReassemblyTables:
     l2g_c: torch.Tensor  # (ns*nlp,) int64
     real: torch.Tensor  # (ns*nlp,) bool
     counts: torch.Tensor  # (ng,) f64
+    #: under a mesh ``l2g_c`` and ``real`` cover this rank's subdomains, and
+    #: the copy sums run on the ranks' gathered blocks (large.py:1061-1088)
+    mesh: Any = None
 
     @classmethod
-    def build(cls, l2g: np.ndarray, nlp: int, device, kernel: bool = True):
+    def build(cls, l2g: np.ndarray, nlp: int, device, kernel: bool = True, mesh=None):
         ns, nl = l2g.shape
         ng = int(l2g.max()) + 1
         l2g_pad = np.full((ns, nlp), -1, dtype=np.int64)
         l2g_pad[:, :nl] = l2g
-        flat = l2g_pad.reshape(-1)
-        real = flat >= 0
+        counts = np.bincount(l2g[l2g >= 0], minlength=ng).astype(np.float64)
         copies = copy_sum_table(l2g_pad, ng, device)
-        counts = np.bincount(flat[real], minlength=ng).astype(np.float64)
+        lo, hi = (0, ns) if mesh is None else mesh.subdomains(ns)
+        flat = l2g_pad[lo:hi].reshape(-1)
+        real = flat >= 0
         dev = resolve_device(device)
         return cls(
             copies=copies.replace(kernel=kernel),
             l2g_c=torch.as_tensor(np.where(real, flat, ng), device=dev),
             real=torch.as_tensor(real, device=dev),
             counts=torch.as_tensor(np.maximum(counts, 1.0), device=dev),
+            mesh=mesh,
         )
+
+    def sum_copies(self, x_dec: torch.Tensor) -> torch.Tensor:
+        """(ng,) sums of each global dof's copies in ``x_dec`` (this rank's
+        block under a mesh: the ranks' blocks are gathered first, so the
+        copies add up in the one-device order)."""
+        return self.copies.apply(x_dec if self.mesh is None else all_gather(x_dec, self.mesh))
 
 
 def make_fast_solve_fn(opts: FetiOptions, tol: Tolerances, nref: int, ng: int):
@@ -794,7 +873,7 @@ def make_fast_solve_fn(opts: FetiOptions, tol: Tolerances, nref: int, ng: int):
             return sol.x
 
         def assemble(xd):
-            return tables.copies.apply(xd) / tables.counts
+            return tables.sum_copies(xd) / tables.counts
 
         def ext(v, fill):
             return torch.cat([v, v.new_full((1,), fill)])[l2g_c]
@@ -806,7 +885,7 @@ def make_fast_solve_fn(opts: FetiOptions, tol: Tolerances, nref: int, ng: int):
             r = torch.where(real, b - qp.A.mv(u_lift), 0.0)
             # sum the copies (= assembled residual), re-split with
             # D = 1/multiplicity (decompose_rhs_by_multiplicity)
-            rg = tables.copies.apply(r)
+            rg = tables.sum_copies(r)
             r_dec = torch.where(real, ext(rg, 0.0) / ext(tables.counts, 1.0), 0.0)
             xg = xg + assemble(solve_chain(r_dec))
         return xg, x_dec, results
@@ -831,7 +910,8 @@ class FetiSolverSparse:
                  op_dtype=None, primal_refine: int = 0, BI=None, cI=None,
                  device=None):
         _check_contact_refine(BI, primal_refine)
-        self.device = resolve_device(device)
+        check_mesh(opts.mesh)
+        self.device = _rank_device(opts, device)
         self.opts = opts
         self.primal_refine = primal_refine
         #: host_setup_s and factor_s of the constructor
@@ -870,8 +950,11 @@ class FetiSolverSparse:
                 # factors silently violates the boundary conditions
                 b_loc = self._elim.apply_b(b_loc)
             prob = dataclasses.replace(prob, b_loc=b_loc)
-            b_pad = np.zeros((prob.ns, qp.BE.nl))
-            b_pad[:, : prob.nl] = prob.b_loc
+            # under a mesh: this rank's subdomains of the new rhs (large.py:1013-1020)
+            lo, hi = (0, prob.ns) if self.opts.mesh is None else self.opts.mesh.subdomains(
+                prob.ns)
+            b_pad = np.zeros((hi - lo, qp.BE.nl))
+            b_pad[:, : prob.nl] = prob.b_loc[lo:hi]
             qp = qp.replace(b=torch.as_tensor(b_pad.reshape(-1), device=self.device))
         from ..sys import tracing
 
@@ -889,7 +972,8 @@ class FetiSolverSparse:
     def _solve_fast(self, prob, qp, tol: Tolerances) -> FetiResult:
         if self._tables is None:
             self._tables = ReassemblyTables.build(
-                prob.l2g, qp.BE.nl, self.device, kernel=self.opts.gather_kernel is not False)
+                prob.l2g, qp.BE.nl, self.device, kernel=self.opts.gather_kernel is not False,
+                mesh=self.opts.mesh)
         fn = make_fast_solve_fn(self.opts, tol, self.primal_refine, prob.n_global)
         x_global, x_dec, results = fn(qp, self.kplus, self.kplus_post, self._pf, qp.b,
                                       self._tables)

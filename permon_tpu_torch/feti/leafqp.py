@@ -16,8 +16,8 @@ recurrence coefficients of row space, while each F apply is the leaf apply
 of :mod:`permon_tpu_torch.feti.leaf` (batched products and the partner
 combine on the gather kernel).
 
-Not ported: ``leaf_dual_qp(mesh=...)`` (the overlapped boundary exchange
-of ``parallel/overlap.py``, multi-device).
+``leaf_dual_qp(mesh=...)`` runs the F apply as the overlapped boundary
+exchange of :mod:`permon_tpu_torch.parallel.overlap` over the mesh's ranks.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from typing import Any, Tuple
 
 import torch
 
-from .. import Struct, not_ported
+from .. import Struct
 from ..core.linop import LinearOperator
 from ..qp.projector import dense_rows
 from ..qp.qp import QP
@@ -142,16 +142,23 @@ def leaf_dual_qp(dual: QP, BE_primal, kplus, mesh=None, reuse: QP = None
     exactly).  ``BE_primal`` is the stacked primal extension [BE; BI] with
     its gather tables on the device.  ``reuse``: an earlier ``qp_leaf`` of
     the same operators (a re-solve with a new rhs), whose A, BE and
-    projector are taken as they are."""
-    if mesh is not None:
-        raise not_ported("leaf_dual_qp(mesh=...) (the overlapped boundary exchange of "
-                         "parallel/overlap.py; ROADMAP.md queue A item 5)")
+    projector are taken as they are.  ``mesh``: the F apply runs as the
+    overlapped boundary exchange over its ranks (leafqp.py:152-156; a
+    ``TypeError`` for anything but a mesh)."""
+    from ..parallel.dist import check_mesh
+
+    check_mesh(mesh)
     if reuse is not None:
         A, BE, pf = reuse.A, reuse.BE, reuse.pf
         sls = A.sp
     else:
         op_leaf = LeafDualOperator.create(BE_primal, kplus)
         sls = ScaledLeafSpace.create(op_leaf.space)
+        if mesh is not None:
+            from ..parallel.overlap import LeafOverlapPlan, OverlappedLeafOperator
+
+            plan = LeafOverlapPlan.build(op_leaf.space, mesh.size)
+            op_leaf = OverlappedLeafOperator.create(op_leaf, plan, mesh)
         A = ScaledLeafOperator(op=op_leaf, sp=sls)
         BE = pf = None
         if dual.BE is not None:

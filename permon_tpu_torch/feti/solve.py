@@ -28,8 +28,14 @@ Krylov / active-set iteration in the scaled-leaf space, whose partner
 combine runs on the gather kernel; the row-space chain above still makes
 the post-solves.
 
-Not ported here (``NotImplementedError``, see ROADMAP.md): ``mesh`` and
-``qppf_redundancy`` (multi-device, queue A item 5).
+As in the JAX package, the row path does not shard under
+``FetiOptions(mesh=...)``: every rank runs it whole, except that
+``qppf_redundancy`` on a two-axis mesh puts the coarse GG' factor on
+redundancy groups (parallel/coarse.py; solve.py:380-396) and the leaf path
+runs its F apply as the overlapped boundary exchange of
+parallel/overlap.py (solve.py:455).  ``qppf_redundancy`` without such a
+mesh is ignored there too; a ``mesh`` that is not a mesh raises
+``TypeError``.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .. import not_ported, resolve_device
+from .. import resolve_device
 from ..core.blockdiag import BlockDiagDense
 from ..core.convergence import Tolerances
 from ..core.detred import deterministic_mode
@@ -99,7 +105,9 @@ class FetiOptions:
     #: bucket heterogeneous subdomain sizes in the K+ factorization
     #: (RaggedBlockDiagCholInv) instead of padding to nl_max
     ragged_kplus: bool = False
-    #: device mesh of the JAX package; multi-device is not ported
+    #: a :class:`~permon_tpu_torch.parallel.dist.Mesh` of ranks (make_mesh,
+    #: make_mesh2): the large path shards its subdomains over it; the dense
+    #: path reads it only for the leaf path and qppf_redundancy
     mesh: Optional[Any] = None
     #: dual coarse-side build: 'auto' | 'dense' | 'sparse'
     coarse: str = "auto"
@@ -110,6 +118,8 @@ class FetiOptions:
     #: pin every solver reduction to a fixed binary tree (core/detred.py);
     #: None inherits the process-global mode
     deterministic: Optional[bool] = None
+    #: with a mesh (a two-axis one on the dense path): the coarse GG' factor
+    #: on redundancy groups (parallel/coarse.py; -dual_qppf_redundancy)
     qppf_redundancy: bool = False
     #: B/B' gather tables: None or True run the CUDA gather kernel on a
     #: CUDA device (for every table size — the JAX package's 2^19-slot
@@ -151,16 +161,11 @@ def assemble_global_mean(u: np.ndarray, l2g: np.ndarray, n_global: int) -> np.nd
 
 
 def _check_options(opts: FetiOptions) -> None:
-    """Raise for the options outside the ported dense path (ROADMAP.md)
-    and for values no path knows."""
-    mesh_what = ("FetiOptions(mesh=...) with throughput=True (the leaf path's overlapped "
-                 "boundary exchange, parallel/overlap.py; multi-device, queue A item 5)"
-                 if opts.throughput else "FetiOptions(mesh=...) (multi-device; queue A item 5)")
-    for bad, what in ((opts.mesh is not None, mesh_what),
-                      (opts.qppf_redundancy, "FetiOptions(qppf_redundancy=True) "
-                       "(multi-device; queue A item 5)")):
-        if bad:
-            raise not_ported(what)
+    """Raise for a ``mesh`` that is not a mesh (TypeError) and for values
+    no path knows."""
+    from ..parallel.dist import check_mesh
+
+    check_mesh(opts.mesh)
     for name, value, allowed in (
             ("gluing", opts.gluing, GLUING_TYPES), ("pc_dual", opts.pc_dual, ("none", "lumped")),
             ("nullspace", opts.nullspace, ("constant", "numeric", "rbm")),
@@ -466,17 +471,18 @@ def _use_leaf(opts: FetiOptions, qp: QP, kplus) -> bool:
             and hasattr(kplus, "explicitly"))
 
 
-def _leaf_qp(qp: QP, dual: QP, kplus, cache: Optional[dict]):
+def _leaf_qp(qp: QP, dual: QP, kplus, cache: Optional[dict], mesh=None):
     """(leaf QP, sls) of ``dual``: the dual of the STACKED [BE; BI] in the
     scaled-leaf space, its cE homogenized; its operators, projector and sls
-    come from ``cache`` when an earlier solve put them there."""
+    come from ``cache`` when an earlier solve put them there.  ``mesh``: the
+    F apply is the overlapped exchange over its ranks."""
     from .leafqp import leaf_dual_qp
 
     cache = {} if cache is None else cache
     if "B_full" not in cache:
         cache["B_full"] = (qp.BE if qp.BI is None
                            else SubdomainExtension.vstack((qp.BE, qp.BI)).with_dense_blocks())
-    leaf, sls = leaf_dual_qp(dual, cache["B_full"], kplus, reuse=cache.get("leaf"))
+    leaf, sls = leaf_dual_qp(dual, cache["B_full"], kplus, mesh=mesh, reuse=cache.get("leaf"))
     cache.setdefault("leaf", leaf)
     if leaf.cE is not None:
         leaf, _ = homogenize_eq(leaf)
@@ -549,6 +555,16 @@ def _feti_solve_body(prob: FetiProblem, opts: FetiOptions, tol: Tolerances, qp: 
                      kplus, pf=None, leaf_cache: Optional[dict] = None) -> FetiResult:
     steps = []
     dual, post_d = dualize(qp, kplus=kplus, coarse=opts.coarse, pf=pf)
+    if (pf is None and opts.qppf_redundancy and dual.BE is not None and opts.mesh is not None
+            and len(opts.mesh.axis_names) == 2):
+        # the redundancy-group coarse solve (-dual_qppf_redundancy): the
+        # group-distributed factor in place of the replicated one, for every
+        # projector and post-solve application (solve.py:380-396)
+        from ..parallel.coarse import redundant_projector
+        from ..qp.projector import dense_rows
+
+        Gd = dense_rows(dual.BE).cpu().numpy()
+        dual = dual.replace(pf=redundant_projector(dual.BE, Gd @ Gd.T, opts.mesh))
     steps.append((dual, post_d))
     cur = dual
     if opts.precision == "mixed":
@@ -587,7 +603,7 @@ def _feti_solve_body(prob: FetiProblem, opts: FetiOptions, tol: Tolerances, qp: 
     leaf = leaf64 = sls = pc_leaf = None
     if use_leaf:
         leaf_cache = {} if leaf_cache is None else leaf_cache
-        leaf, sls = _leaf_qp(qp, dual, kplus, leaf_cache)
+        leaf, sls = _leaf_qp(qp, dual, kplus, leaf_cache, mesh=opts.mesh)
         leaf64 = leaf
         leaf = _leaf_precision(leaf, opts.precision, leaf_cache)
         if opts.pc_dual == "lumped":

@@ -8,7 +8,8 @@ It dispatches on the class NAME and never imports jax or permon_tpu.
 Covered: SubdomainExtension (with its gather tables and overflow COO),
 BlockDia, RegularizedBlockDia, BlockTridiag, BandCholInv (with any of
 these as its refinement operator), BlockCoarse, Projector (dense factors,
-or the band factor with its permutation), Dense / DenseTree, Ell, Dia,
+the band factor with its permutation, or the redundancy-group factor
+``cp_dist`` onto a port mesh), Dense / DenseTree, Ell, Dia,
 SEll (decoded from its round plan), VStack,
 Penalized, OneRow, PCDual, BoxConstraint, QP (with BI / cI), the options
 objects SMALXEOptions / MPRGPOptions (field by field), the factorized
@@ -121,12 +122,23 @@ def bandcholinv_from_arrays(obj, device=None) -> BandCholInv:
                        refine=int(obj.refine))
 
 
-def projector_from_arrays(obj, device=None) -> Projector:
+def projector_from_arrays(obj, device=None, mesh=None) -> Projector:
     """Port a JAX Projector: dense factors (Cholesky and/or explicit
-    inverse) or the band factor of GG' with its RCM permutation."""
+    inverse), the band factor of GG' with its RCM permutation, or a
+    redundancy-group factor ``cp_dist``, which becomes a
+    :class:`~permon_tpu_torch.parallel.coarse.RedundantCoarse` on ``mesh``
+    (a port mesh: its group axis is the JAX factor's axis if it has one,
+    else its last) from the whole factor L of the JAX mesh."""
     dev = resolve_device(device)
-    if getattr(obj, "cp_dist", None) is not None:
-        raise not_ported("the distributed coarse factor (cp_dist) of Projector")
+    cp = getattr(obj, "cp_dist", None)
+    if cp is not None:
+        if mesh is None:
+            raise ValueError("a Projector with a redundancy-group factor (cp_dist) ports "
+                             "onto a permon_tpu_torch.parallel mesh: pass mesh=")
+        from .parallel.coarse import RedundantCoarse
+
+        axis = cp.axis if cp.axis in mesh.axis_names else mesh.axis_names[-1]
+        cp = RedundantCoarse.from_factor(np.asarray(cp.L), int(cp.kc), mesh, axis, device=dev)
     return Projector(
         G=from_arrays(obj.G, dev),
         ggt_chol=None if obj.ggt_chol is None else _t(obj.ggt_chol, dev),
@@ -134,6 +146,7 @@ def projector_from_arrays(obj, device=None) -> Projector:
         ggt_inv=None if obj.ggt_inv is None else _t(obj.ggt_inv, dev),
         ggt_band=None if obj.ggt_band is None else from_arrays(obj.ggt_band, dev),
         cp_perm=None if obj.cp_perm is None else _t(obj.cp_perm, dev, torch.int64),
+        cp_dist=cp,
     )
 
 
@@ -397,10 +410,13 @@ _BY_NAME = {
 }
 
 
-def from_arrays(obj, device=None):
+def from_arrays(obj, device=None, mesh=None):
     """The port's counterpart of a JAX package operator, built from its
-    fields read as numpy arrays."""
+    fields read as numpy arrays.  ``mesh`` (a port mesh) receives a
+    Projector's redundancy-group coarse factor."""
     fn = _BY_NAME.get(type(obj).__name__)
     if fn is None:
         raise not_ported(f"interop for {type(obj).__name__}")
+    if fn is projector_from_arrays:
+        return fn(obj, device, mesh=mesh)
     return fn(obj, device)

@@ -15,8 +15,10 @@ assembles (GG')^{-1} and applies it as a fixed-tree GEMV.  Past
 subdomains), or with ``sparse=True``, a sparse-structured GG' is
 RCM-ordered and factorized as a band
 (:func:`~permon_tpu_torch.core.band.band_chol_single`); the coarse solve is
-then permute, pad, two band substitution loops, un-permute.  The
-redundancy-group distributed factor (``cp_dist``) is not ported.
+then permute, pad, two band substitution loops, un-permute.  With
+``cp_dist`` (a :class:`~permon_tpu_torch.parallel.coarse.RedundantCoarse`,
+the ``-qppf_redundancy`` analog) the coarse solve runs on redundancy groups
+of ranks and takes precedence over the local factors.
 """
 
 from __future__ import annotations
@@ -74,6 +76,8 @@ class Projector(Struct):
     #: GG' and the permutation (None on the dense path)
     ggt_band: Any = None
     cp_perm: Optional[torch.Tensor] = None
+    #: redundancy-group distributed coarse factor (parallel/coarse.py)
+    cp_dist: Any = None
 
     @classmethod
     def create(cls, G: LinearOperator, orthonormal_rows: Optional[bool] = None,
@@ -125,6 +129,8 @@ class Projector(Struct):
         back to the input dtype."""
         if self.orthonormal_rows:
             return v
+        if self.cp_dist is not None:
+            return self.cp_dist.mv(v)
         if self.ggt_band is not None:
             m = self.G.shape[0]
             vp = torch.zeros(self.ggt_band.shape[0], dtype=v.dtype, device=v.device)

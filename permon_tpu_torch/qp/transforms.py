@@ -82,11 +82,18 @@ def _sparse_coarse(R, B):
     :class:`~permon_tpu_torch.feti.large.BlockCoarse` when R is
     block-diagonal (per-subdomain contractions, no (k, m) array), else as
     the lazy product R'(B' .).  None when either operator lacks sparse
-    structure."""
+    structure.  Under a mesh (R holds a rank's rows, B its columns) every
+    rank gathers the whole R and B from the ranks' triplets in rank order
+    (the one-device matrices, entry for entry) and builds the same G and
+    GG'; a BlockCoarse G keeps the rank's blocks."""
+    from ..parallel.dist import operator_mesh
     from .sparse_rows import to_scipy
 
-    R_sp = to_scipy(R)
-    B_sp = to_scipy(B)
+    mesh = operator_mesh(B)
+    if mesh is not None:
+        R_sp, B_sp = _gathered_scipy(R, B, mesh)
+    else:
+        R_sp, B_sp = to_scipy(R), to_scipy(B)
     if R_sp is None or B_sp is None:
         return None
     G_sp = (R_sp.T @ B_sp.T).tocsr()
@@ -102,6 +109,34 @@ def _sparse_coarse(R, B):
         if G_op is None:
             G_op = Product((Transpose(R), Transpose(B)))  # mv = R'(B' lam)
     return G_op, ggt
+
+
+def _gathered_scipy(R, B, mesh):
+    """The whole R (N, k) and B (m, N) as scipy CSR on every rank, from
+    each rank's rows of R and columns of B concatenated in rank order (the
+    subdomain order); (None, None) without sparse structure."""
+    import scipy.sparse as sp
+
+    from ..parallel.dist import all_gather_object
+    from .sparse_rows import to_coo
+
+    parts = all_gather_object((to_coo(R), to_coo(B)), mesh)
+    if any(r is None or b is None for r, b in parts):
+        return None, None
+    Rr, Rc, Rv, Br, Bc, Bv, off = [], [], [], [], [], [], 0
+    for (rr, rc, rv, (nloc, k)), (br, bc, bv, (m, _)) in parts:
+        Rr.append(rr + off)
+        Rc.append(rc)
+        Rv.append(rv)
+        Br.append(br)
+        Bc.append(bc + off)
+        Bv.append(bv)
+        off += nloc
+    R_sp = sp.csr_matrix(sp.coo_matrix((np.concatenate(Rv), (np.concatenate(Rr),
+                                                             np.concatenate(Rc))), shape=(off, k)))
+    B_sp = sp.csr_matrix(sp.coo_matrix((np.concatenate(Bv), (np.concatenate(Br),
+                                                             np.concatenate(Bc))), shape=(m, off)))
+    return R_sp, B_sp
 
 
 def dualize(qp: QP, regularize: bool = True, kplus=None, kplus_mode: str = "plain",
@@ -162,9 +197,11 @@ def dualize(qp: QP, regularize: bool = True, kplus=None, kplus_mode: str = "plai
         G = pf.G
         e = qp.R.rmv(b)
     elif qp.R is not None and qp.R.shape[1] > 0:
+        from ..parallel.dist import global_rows
+
         k_null = qp.R.shape[1]
         want_sparse = coarse == "sparse" or (
-            coarse == "auto" and k_null * (qp.R.shape[0] + m) > SPARSE_COARSE_THRESHOLD
+            coarse == "auto" and k_null * (global_rows(qp.R) + m) > SPARSE_COARSE_THRESHOLD
         )
         sp_coarse = _sparse_coarse(qp.R, B) if want_sparse else None
         if sp_coarse is not None:

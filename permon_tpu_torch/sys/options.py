@@ -149,8 +149,8 @@ def feti_options_from_options(opts: Options):
         precision=str(opts.get("feti_precision", fo.precision)),
         # -dual_qppf_redundancy N: the reference distributes the coarse
         # factor over N subcommunicator groups; any nonzero value selects
-        # the host-group distributed factor (multi-device: FetiOptions
-        # raises NotImplementedError for it in the port)
+        # the host-group distributed factor on a two-axis mesh
+        # (parallel/coarse.py); without a mesh it is ignored
         qppf_redundancy=bool(int(opts.get("dual_qppf_redundancy", 0))),
     )
 

@@ -242,14 +242,22 @@ def test_feti_solver_resolves_with_new_loads(ex71):
 
 
 @pytest.mark.parametrize("opts,match", [
-    # the leaf path itself runs (tests/test_torch_leaf.py); over a mesh it
-    # is the overlapped boundary exchange, still to come
-    (dict(throughput=True, mesh=object()), "leaf path"), (dict(mesh=object()), "multi-device"),
-    (dict(qppf_redundancy=True), "multi-device"),
+    # a mesh is a permon_tpu_torch.parallel Mesh (make_mesh / make_mesh2): the
+    # runs over ranks are tests/test_torch_parallel.py
+    (dict(throughput=True, mesh=object()), "Mesh"), (dict(mesh=object()), "Mesh"),
+    # without a two-axis mesh there are no redundancy groups: ignored, as in
+    # the JAX package (solve.py:380-385)
+    (dict(qppf_redundancy=True), None),
 ])
 def test_options_outside_the_slice_raise(ex1, opts, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _solve(ex1[0], **opts)
+    prob, jprob = ex1
+    if match is not None:
+        with pytest.raises(TypeError, match=match):
+            _solve(prob, **opts)
+        return
+    res, plain, ref = _solve(prob, **opts), _solve(prob), _jsolve(jprob, **opts)
+    assert res.result.iterations == plain.result.iterations == int(ref.result.iterations)
+    np.testing.assert_array_equal(res.x_global, plain.x_global)
 
 
 def test_save_and_bad_options(ex1, tmp_path):

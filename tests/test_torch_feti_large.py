@@ -113,15 +113,25 @@ def test_full_gluing_solves(prob):
 
 
 @pytest.mark.parametrize("opts,match", [
-    (dict(qppf_redundancy=True), "ROADMAP"),
-    (dict(mesh=object()), "ROADMAP"), (dict(coarse="redundant"), "ROADMAP"),
+    # without a mesh there are no redundancy groups: the solve is the plain one
+    # (large.py:655-657); a mesh is a permon_tpu_torch.parallel Mesh (the runs
+    # over ranks: tests/test_torch_parallel.py)
+    (dict(qppf_redundancy=True), None),
+    (dict(mesh=object()), "Mesh"), (dict(coarse="redundant"), "ROADMAP"),
     # rejected by the JAX package itself on the large path, in its words
     (dict(project=False), "project=False"), (dict(throughput=True), "throughput=True"),
     (dict(orth_G="gs"), "orth_G on the large path"),
 ])
 def test_options_outside_the_slice_raise(prob, opts, match):
-    with pytest.raises(NotImplementedError, match=match):
-        feti_solve_sparse(prob, FetiOptions(**{"gluing": "nonred", **opts}), device="cpu")
+    run = lambda **o: feti_solve_sparse(prob, FetiOptions(**{"gluing": "nonred", **o}),
+                                        device="cpu")
+    if match is None:
+        res, plain = run(**opts), run()
+        assert res.result.iterations == plain.result.iterations
+        np.testing.assert_array_equal(res.x_global, plain.x_global)
+        return
+    with pytest.raises(TypeError if "mesh" in opts else NotImplementedError, match=match):
+        run(**opts)
 
 
 def test_orth_gluing_on_the_large_path(prob):

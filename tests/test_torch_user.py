@@ -102,10 +102,16 @@ def test_feti_options_mapping():
 
 
 def test_not_ported_options_still_raise():
+    """The multi-device options run (tests/test_torch_parallel.py); a mesh
+    that is not a permon_tpu_torch.parallel Mesh raises TypeError, and
+    qppf_redundancy without a mesh is ignored, as in the JAX package."""
     prob = tprob.build_feti_ex1(4, 7)
-    for opts in (FetiOptions(mesh=object()), FetiOptions(qppf_redundancy=True)):
-        with pytest.raises(NotImplementedError, match="queue A item 5"):
-            feti_solve(prob, opts, device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        feti_solve(prob, FetiOptions(mesh=object()), device="cpu")
+    res = feti_solve(prob, FetiOptions(qppf_redundancy=True), device="cpu")
+    plain = feti_solve(prob, FetiOptions(), device="cpu")
+    assert res.result.iterations == plain.result.iterations
+    np.testing.assert_array_equal(res.x_global, plain.x_global)
 
 
 # -- tracing and Timer ---------------------------------------------------------
