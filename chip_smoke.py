@@ -158,7 +158,17 @@ Phases:
    13a's, the overlapped apply within 1e-12 of the flat one; (d) the twin
    on NCCL with one rank: counts equal to phase 5's.  Ranks that
    time-share one card measure correctness and collective overhead, not
-   scaling.
+   scaling;
+15. the command-line examples (permon_tpu_torch/examples/, the port of the
+   JAX package's examples/): each example's main on the card at its JAX
+   twin's default arguments (ex1, ex2, ex3, jbearing2, feti_ex1,
+   feti_contact, feti_ex71 and its main_elasticity, svm; feti_large's main
+   at the north star and its main_elasticity), its printed lines logged, its
+   counts held beside the JAX example's (EXAMPLE_REFERENCE), reason > 0, the
+   gather kernel launched under every FETI example, the QP tutorials'
+   Hessian on Dia as the JAX package's make_operator picks it, feti_large's
+   assembled residual <= 1e-6; the launches under the examples are counted
+   from 0 and printed per example.
 
 Every phase raises on failure (exit code != 0).  The line before the last
 is the kernel JSON record (``ms``: one launch between two events with a
@@ -167,10 +177,11 @@ north star; ``v1_ms``: the replaced kernel the same way, in turns;
 ``call_ms``: the wrapper's back-to-back call period; ``kernel_only_ms``: the
 kernel's device time by the profiler; ``floor_ms``: what ``ms`` reads for a
 32-thread launch; ``bf16_f32_*``: sell_mv's (bf16, f32) pair the same
-way), the last line {"ok": true,
+way; ``launches``: every counted launch of the script, ``launches_examples``
+those of phase 15 alone), the last line {"ok": true,
 "device": ...}.  Development options, none of which prints the result lines:
 ``--kernels-only`` stops after phase 4; ``--only=9,10`` runs phases 1, 2
-and the named ones of 9, 9c, 9t, 10, 11 (11 after phase 7), 12, 12c, 13
+and the named ones of 9, 9c, 9t, 10, 11 (11 after phase 7), 12, 12c, 13, 15
 (with the row-path solves of 12a / 12b and phase 7 it compares with), 14 (with the
 single-device solves of phases 6 and 13a it compares with), 14k (the band K+ apply
 by the subdomains its calls cover, which is why phase 14's one-device references make
@@ -178,9 +189,12 @@ the ranks' calls), 11c (the ex3
 branch alone at the sizes of ``--ex3-n=4096,8192``), 11l (L-BFGS-B alone
 on the grids of ``--blmvm-grids=96,128,192``, beside scipy's own cost).  9c is SMALBE proper
 (project=False, rtol_E 0.1) on elastic contact at 361,416 dofs against its
-projected twin (``--9c-f64``: f64 factors, ``--9c-rtol-E=v``: SMALBE's rtol_E);
+projected twin (``--9c-f64``: f64 factors, ``--9c-rtol-E=v``: SMALBE's rtol_E,
+``--9c-inner-max-it=n``: SMALXE's budget of inner iterations);
 it is no part of the default run: on an H100 its 14th inner solve ran into
-MPRGP's 10,000-iteration cap (PERF.md).  9t sweeps the dual tolerance and
+SMALXE's budget of 10,000 inner iterations, summed over the outer loop
+(ROADMAP.md, fault C2); it logs one line per inner solve (iterations,
+reason, M1, rho, G, E) and SMALXE's per-outer monitor.  9t sweeps the dual tolerance and
 the factor precision of phase 9b's contact solve.
 Imports nothing of JAX or of the JAX package permon_tpu.
 """
@@ -1104,15 +1118,28 @@ def phase_elastic_tolerances(bundle, dev):
         del solver
 
 
-def phase_elastic_smalbe(dev, f64_factors=False, rtol_E=0.1):
+def phase_elastic_smalbe(dev, f64_factors=False, rtol_E=0.1, inner_max_it=10000):
     """9c (``--only=9c``, no part of the default run): SMALBE proper
     (project=False, rtol_E 0.1) on elastic contact at 361,416 dofs, against
     its projected twin, both by the recipe of phase 9b (f32 factors + 2
     refinement steps, rtol 1e-5).  ``--9c-f64`` factors in f64 instead,
-    ``--9c-rtol-E=v`` sets SMALBE's rtol_E (the diagnosis of PERF.md §6).
+    ``--9c-rtol-E=v`` sets SMALBE's rtol_E (the diagnosis of PERF.md §6),
+    ``--9c-inner-max-it=n`` SMALXE's budget of inner iterations (summed over
+    the outer loop; 10,000 by default in both packages), a diagnostic of
+    fault C2 only (ROADMAP §C).  Each inner solve of SMALBE prints one
+    ``[c2] outer`` line through scripts/c2_smalbe_compare.py's
+    ``torch_c2_log`` (the script makes the CPU runs of both packages it is
+    compared with): the inner iterations and reason, the M1 and rho the
+    inner solve ran with, its last G, E and max(G, E), the state; SMALXE's
+    own per-outer monitor (``monitor_outer``) prints its block after each.
     Returns the gather_apply launches."""
+    import contextlib
+
     import numpy as np
     import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    from c2_smalbe_compare import torch_c2_log
 
     from permon_tpu_torch.core.convergence import Tolerances
     from permon_tpu_torch.core.sell import gather_apply
@@ -1127,18 +1154,20 @@ def phase_elastic_smalbe(dev, f64_factors=False, rtol_E=0.1):
     tol = Tolerances(rtol=1e-5)
     factors = {} if f64_factors else dict(kplus_dtype=torch.float32, kplus_refine=2)
     log(f"[elasticity] 9c: {'f64' if f64_factors else 'f32 + 2 refinement steps'} factors, "
-        f"SMALBE rtol_E {rtol_E:g}")
+        f"SMALBE rtol_E {rtol_E:g}, budget of {inner_max_it} inner iterations")
     base = dict(gluing="nonred", nullspace="rbm", deterministic=True, coarse="sparse",
                 dirichlet_by_B=False)
     gather_apply.launches = 0  # count this path's launches only
     out = {}
     for tag, extra in (("projected", {}),
-                       ("SMALBE", dict(project=False, smalxe=SMALXEOptions(rtol_E=rtol_E)))):
+                       ("SMALBE", dict(project=False, smalxe=SMALXEOptions(
+                           rtol_E=rtol_E, inner_max_it=inner_max_it, monitor_outer=True)))):
         solver = FetiSolverSparse(prob, FetiOptions(**base, **extra), BI=BI, cI=cI, device=dev,
                                   **factors)
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        r = solver.solve(tol=tol)
+        with torch_c2_log(log) if tag == "SMALBE" else contextlib.nullcontext():
+            r = solver.solve(tol=tol)
         torch.cuda.synchronize(dev)
         t = time.perf_counter() - t0
         del solver
@@ -3055,6 +3084,213 @@ def phase_ranks(dev, main_ref=None, leaf_ref=None, twin_its=None):
     return launches
 
 
+# -------------------------------------------------------------- phase 15
+
+#: phase 15: the JAX examples' counts on the CPU, beside which each port example's
+#: are printed and held: (what is counted, the counts).  Sources: the
+#: reference oracles the JAX package's tests pin (tests/test_mprgp_ex1.py,
+#: tests/test_jbearing.py, tests/test_transforms.py, tests/test_feti.py) and,
+#: for feti_contact and svm, what `python examples/feti_contact.py` and
+#: `python examples/svm.py` print (tests/test_torch_examples.py holds the
+#: port's CPU counts equal to them)
+EXAMPLE_REFERENCE = {
+    "ex1": ("iterations / products / CG / expansion / proportioning", (181, 200, 156, 18, 7)),
+    "ex2": ("iterations / products / CG / expansion / proportioning", (197, 209, 179, 11, 7)),
+    "ex3": ("iterations / products / CG / expansion / proportioning", (44, 71, 17, 26, 1)),
+    "jbearing2": ("iterations / products / CG / expansion / proportioning", (23, 24, 21, 0, 2)),
+    "feti_ex1": ("iterations", (1,)),
+    "feti_contact": ("outer / inner / products", (29, 72, 126)),
+    "feti_ex71": ("iterations", (9,)),
+    "feti_ex71 elasticity": ("iterations", (64,)),
+    "svm": ("outer / inner / reason", (9, 488, 2)),
+}
+#: 15: feti_large's main at the north star, (ncells, g): the problem of phases 5-6
+EXAMPLE_LARGE = (NORTH_STAR[0][0], NORTH_STAR[1][0])
+#: 15: a count on the card within this many of the CPU's (phase 12c holds the
+#: same elasticity tutorial within 2: its dual CG rounds otherwise on the card)
+EXAMPLE_BAND = {"feti_ex71 elasticity": 2}
+
+
+def phase_examples(dev, main_its=None):
+    """15: every command-line example of the port (permon_tpu_torch/examples/)
+    through its ``main`` on the card (``device=`` the card, as None would
+    pick it), at its JAX twin's default arguments: ex1, ex2, ex3,
+    jbearing2, feti_ex1, feti_contact, feti_ex71 (and its main_elasticity),
+    svm, and feti_large at the north star (``main(100, 4)``: the problem of
+    phases 5-6, built again by the example) and its main_elasticity at the
+    example's default size.  Each example's printed lines are logged; its
+    counts are held beside the JAX example's (EXAMPLE_REFERENCE) and every
+    solve to reason > 0; the kernels' launches under each example are counted
+    from 0.  The FETI examples must launch the gather kernel (B, B' and the
+    reassembly); ex1, ex2 and jbearing2 run their Hessian on ``Dia`` (the
+    banded rule of ``make_operator``, as the JAX package picks it), ex3 and
+    svm on dense operators, so none of them reaches a kernel.  feti_large's
+    residual is held as phase 6 holds it (1e-6).  Every FETI example's solve
+    is run again through the plain gather version
+    (``FetiOptions(gather_kernel=False)``), as phases 8a, 9b, 12a and 13a do,
+    and must give the same counts and a bitwise equal x_global with no
+    kernel launch: through the example's own ``main`` where it passes
+    FetiOptions' keywords on (feti_ex1, feti_ex71, and feti_ex71's
+    ``main_elasticity`` as the ``main`` call it makes), else the example's
+    recipe from its problem function (feti_contact's ``build``; feti_large's
+    ``build_sparse`` / ``build_sparse_elasticity`` with its factors and
+    passes).  Returns (gather_apply, sell_mv) launches under the examples'
+    own runs."""
+    import contextlib
+    import importlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.core.dia import Dia
+    from permon_tpu_torch.core.sell import gather_apply, sell_mv
+    from permon_tpu_torch.feti.large import FetiSolverSparse, feti_solve_sparse
+    from permon_tpu_torch.feti.solve import FetiOptions, feti_solve
+    from permon_tpu_torch.problems import build_sparse, build_sparse_elasticity
+
+    def qp_counts_of(i):
+        def of(ret, text):
+            r = ret[i]
+            return r.reason, (r.iterations, r.nmv, r.ncg, r.nexp, r.nprop)
+        return of
+
+    def contact_counts(ret, text):
+        r = ret[1]
+        return r.reason, (r.iterations, r.inner_iterations, r.nmv)
+
+    def feti_counts(ret, text):
+        r = ret[1].result
+        return r.reason, (r.iterations,)
+
+    def large_counts(res):  # every dual solve: the first pass and the defect passes
+        return res.result.reason, tuple(p.iterations for p in res.results)
+
+    def svm_counts(ret, text):  # main returns the accuracy: the counts from its line
+        got = tuple(int(text.split(k + "=")[1].split()[0])
+                    for k in ("outer_its", "inner_its", "reason"))
+        return got[2], got
+
+    failures = []
+    n_gather = n_sell = 0
+    # (tag, example module, its call, (reason, counts) from its return and printed text)
+    runs = [(name, name, lambda m: m.main(device=dev), of) for name, of in (
+        ("ex1", qp_counts_of(1)), ("ex2", qp_counts_of(1)), ("ex3", qp_counts_of(2)),
+        ("jbearing2", qp_counts_of(1)), ("feti_ex1", feti_counts),
+        ("feti_contact", contact_counts), ("feti_ex71", feti_counts), ("svm", svm_counts))]
+    runs += [("feti_ex71 elasticity", "feti_ex71", lambda m: m.main_elasticity(device=dev),
+              feti_counts),
+             ("feti_large", "feti_large", lambda m: m.main(*EXAMPLE_LARGE, device=dev),
+              lambda ret, text: large_counts(ret[0])),
+             ("feti_large elasticity", "feti_large", lambda m: m.main_elasticity(device=dev),
+              lambda ret, text: large_counts(ret))]
+    # each FETI example's solve through the plain gather version: (the call,
+    # returning what the example's call returns; x_global of such a return)
+    f32 = dict(kplus_dtype=torch.float32, kplus_refine=2)
+
+    def contact_plain(m):  # feti_contact.main's solve
+        prob, BI, cI, _ = m.build()
+        r = feti_solve(prob, FetiOptions(gluing="nonred", gather_kernel=False), BI=BI, cI=cI,
+                       device=dev)
+        return r.x_global, r.result, r.solution
+
+    def large_plain(m):  # feti_large.main(*EXAMPLE_LARGE)'s solve
+        ncells, g = EXAMPLE_LARGE
+        prob = build_sparse((ncells,) * 3, (g,) * 3)
+        return feti_solve_sparse(prob, FetiOptions(gluing="nonred", gather_kernel=False),
+                                 tol=Tolerances(rtol=1e-5), device=dev, primal_refine=1,
+                                 **f32), None
+
+    def large_elastic_plain(m):  # feti_large.main_elasticity()'s solve, at its defaults
+        prob = build_sparse_elasticity((16,) * 3, (2,) * 3)
+        return FetiSolverSparse(
+            prob, FetiOptions(gluing="nonred", nullspace="rbm", dirichlet_by_B=False,
+                              gather_kernel=False),
+            primal_refine=1, device=dev, **f32).solve(tol=Tolerances(rtol=1e-5))
+
+    plain = {
+        "feti_ex1": (lambda m: m.main(device=dev, gather_kernel=False),
+                     lambda r: r[1].x_global),
+        "feti_ex71": (lambda m: m.main(device=dev, gather_kernel=False),
+                      lambda r: r[1].x_global),
+        "feti_ex71 elasticity": (lambda m: m.main(  # what main_elasticity() calls
+            cells=(8, 6, 4), grid=(7, 1, 1), pde="elasticity", gluing="nonred", pc_dual="none",
+            nullspace="numeric", rtol=1e-6, device=dev, gather_kernel=False),
+            lambda r: r[1].x_global),
+        "feti_contact": (contact_plain, lambda r: r[0]),
+        "feti_large": (large_plain, lambda r: r[0].x_global),
+        "feti_large elasticity": (large_elastic_plain, lambda r: r.x_global),
+    }
+    t_all = time.perf_counter()
+    for tag, module, call, counts in runs:
+        mod = importlib.import_module(f"permon_tpu_torch.examples.{module}")
+        gather_apply.launches = sell_mv.launches = 0
+        out = io.StringIO()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            ret = call(mod)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter() - t0
+        g, sv = gather_apply.launches, sell_mv.launches
+        n_gather, n_sell = n_gather + g, n_sell + sv
+        for line in out.getvalue().splitlines():
+            log(f"[examples] {tag}: {line}")
+        reason, got = counts(ret, out.getvalue())
+        got = tuple(int(v) for v in got)
+        ref = EXAMPLE_REFERENCE.get(tag)
+        band = EXAMPLE_BAND.get(tag, 0)
+        line = (f"[examples] {tag}: {t:.3f} s on the card, reason {reason}, "
+                + (f"{ref[0]} {got} (JAX example {ref[1]}"
+                   + (f", band {band})" if band else ")") if ref else f"counts {got}")
+                + f"; launches: gather_apply {g}, sell_mv {sv}")
+        log(line)
+        if not int(reason) > 0:
+            failures.append(f"{tag}: reason {reason}")
+        if ref and any(abs(a - b) > band for a, b in zip(got, ref[1])):
+            failures.append(f"{tag}: {got} against the JAX example's {ref[1]}")
+        if module.startswith("feti") and g <= 0:
+            failures.append(f"{tag}: the gather kernel was never launched")
+        if tag in plain:
+            call_plain, x_of = plain[tag]
+            gather_apply.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                pret = call_plain(mod)
+            torch.cuda.synchronize(dev)
+            tp = time.perf_counter() - t0
+            preason, pgot = counts(pret, "")
+            pgot = tuple(int(v) for v in pgot)
+            same = np.array_equal(np.asarray(x_of(pret)), np.asarray(x_of(ret)))
+            log(f"[examples] {tag}: through the plain gather version (gather_kernel=False) "
+                f"{tp:.3f} s, reason {preason}, counts {pgot}, x_global bitwise equal {same}, "
+                f"kernel launches {gather_apply.launches}")
+            if (int(preason), pgot) != (int(reason), got) or not same or gather_apply.launches:
+                failures.append(f"{tag}: the plain gather version gives reason {preason}, "
+                                f"{pgot}, x bitwise equal {same}, {gather_apply.launches} "
+                                f"launches against the kernel's {reason}, {got}")
+            del pret
+        if module in ("ex1", "ex2", "jbearing2"):
+            op = ret[0].A
+            log(f"[examples] {tag}: Hessian on {type(op).__name__} (the banded rule of "
+                f"make_operator), {'as' if isinstance(op, Dia) else 'NOT as'} the JAX package "
+                f"picks it")
+            if not isinstance(op, Dia):
+                failures.append(f"{tag}: Hessian on {type(op).__name__}")
+        if tag == "feti_large":
+            resid = ret[1]
+            log(f"[examples] feti_large: assembled residual {resid:.3e} (limit 1e-6, as phase 6)"
+                + (f"; phase 6's first solve (deterministic=True) {main_its}" if main_its else ""))
+            if not resid <= 1e-6:
+                failures.append(f"feti_large: residual {resid}")
+    log(f"[examples] all examples {time.perf_counter() - t_all:.1f} s; launches under the "
+        f"examples: gather_apply {n_gather}, sell_mv {n_sell}")
+    if failures:
+        raise AssertionError("phase 15: " + "; ".join(failures))
+    return n_gather, n_sell
+
+
 def main():
     import numpy as np
     import torch
@@ -3100,7 +3336,8 @@ def main():
         for name, run in (("9", lambda: phase_elasticity(*build_elastic(), dev)),
                           ("9c", lambda: phase_elastic_smalbe(
                               dev, "--9c-f64" in sys.argv[1:],
-                              float(opts.get("--9c-rtol-E", 0.1)))),
+                              float(opts.get("--9c-rtol-E", 0.1)),
+                              int(opts.get("--9c-inner-max-it", 10000)))),
                           ("9t", lambda: phase_elastic_tolerances(build_elastic()[0], dev)),
                           ("10", lambda: phase_band_coarse(dev)),
                           ("12", lambda: phase_dense(dev)),
@@ -3108,6 +3345,7 @@ def main():
                           ("13", lambda: phase_leaf(dev)),
                           ("14", lambda: phase_ranks(dev)),
                           ("14k", lambda: phase_kplus_batches(dev)),
+                          ("15", lambda: phase_examples(dev)),
                           ("11", lambda: phase_qp_rest(*phase_qp_only(dev))),
                           ("11c", lambda: [phase_ex3(int(n), dev)
                                            for n in opts.get("--ex3-n", str(EX3_N)).split(",")]),
@@ -3162,14 +3400,19 @@ def main():
     launches += g13
     sell_launches += s13
     launches += phase_ranks(dev, main_ref, leaf_ref, twin_its)
+    examples_gather, examples_sell = phase_examples(dev, main_ref and main_ref["its1"])
+    launches += examples_gather
+    sell_launches += examples_sell
 
     print(json.dumps({"kernels": [
         {"name": "gather_apply", "route": "cuda",
          "source": "permon_tpu_torch/csrc/gather_apply.cu",
-         "replaces": "permon_tpu/core/sell.py:417", "launches": launches, **gather_rec},
+         "replaces": "permon_tpu/core/sell.py:417", "launches": launches,
+         "launches_examples": examples_gather, **gather_rec},
         {"name": "sell_mv", "route": "cuda",
          "source": "permon_tpu_torch/csrc/sell_mv.cu",
-         "replaces": "permon_tpu/core/sell.py:504", "launches": sell_launches, **spmv_rec},
+         "replaces": "permon_tpu/core/sell.py:504", "launches": sell_launches,
+         "launches_examples": examples_sell, **spmv_rec},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -729,3 +729,28 @@ def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
     np.testing.assert_array_equal(again.x_global, live.x_global)
     state = checkpoint.load(p, device=cuda_device)
     assert state["kplus"].chols.device.type == "cuda"
+
+
+def test_examples_on_card(cuda_device):
+    """The command-line examples with no device given: on the card, the FETI
+    examples through the gather kernel; counts and solutions as the same
+    examples give them on the CPU."""
+    import contextlib
+    import io
+
+    from permon_tpu_torch.examples import ex1, feti_contact, feti_ex1
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, res = ex1.main()
+        assert res.x.is_cuda
+        assert (res.iterations, res.nmv, res.ncg, res.nexp, res.nprop) == (181, 200, 156, 18, 7)
+        n0 = gather_apply.launches
+        _, r = feti_ex1.main()
+        assert r.result.iterations == 1 and gather_apply.launches > n0
+        n0 = gather_apply.launches
+        x, res, _ = feti_contact.main()
+        assert gather_apply.launches > n0
+        x_cpu, res_cpu, _ = feti_contact.main(device="cpu")
+    assert (res.iterations, res.inner_iterations, res.nmv) == (
+        res_cpu.iterations, res_cpu.inner_iterations, res_cpu.nmv)
+    np.testing.assert_allclose(x, x_cpu, rtol=0, atol=1e-9)
