@@ -169,6 +169,23 @@ Phases:
    Hessian on Dia as the JAX package's make_operator picks it, feti_large's
    assembled residual <= 1e-6; the launches under the examples are counted
    from 0 and printed per example.
+16. the JAX package's public names on the card, through ``import
+   permon_tpu_torch as pt`` alone and on problems earlier phases built: (a)
+   __graft_entry__.entry's recipe (ex1's obstacle QP at n = 1024 on
+   pt.Dia, pt.mprgp capped at 200 iterations), the count equal and x within
+   1e-9 of the same calls on CPU tensors; (b) phase 7's QP through
+   pt.make_operator -> SEll and pt.mprgp: reason 2, counts and x bitwise
+   those of phase 7's pt.solve; pt.Scaled(pt.Dia, 2.0).diagonal() of the
+   unpermuted jbearing twice scipy's diagonal, bitwise; (c) phase 6's
+   RegularizedBlockDia: diagonal() on the card bitwise equal to the same
+   call on CPU tensors and to the host's scipy diagonal of the subdomain
+   blocks with the fixing-dof correction added; (d) the twin's dual (phase
+   5's recipe through dualize / homogenize_eq / enforce_eq_by_projector)
+   by cg(monitor=True): one printed line per convergence test (iterations +
+   1), counts and x bitwise those of monitor=False, the period per
+   iteration of both (five runs each, alternated), and on the plain gather
+   tables counts and x bitwise with no launch; the launches under the phase
+   counted from 0.
 
 Every phase raises on failure (exit code != 0).  The line before the last
 is the kernel JSON record (``ms``: one launch between two events with a
@@ -178,11 +195,12 @@ north star; ``v1_ms``: the replaced kernel the same way, in turns;
 kernel's device time by the profiler; ``floor_ms``: what ``ms`` reads for a
 32-thread launch; ``bf16_f32_*``: sell_mv's (bf16, f32) pair the same
 way; ``launches``: every counted launch of the script, ``launches_examples``
-those of phase 15 alone), the last line {"ok": true,
+those of phase 15 alone, ``launches_api`` those of phase 16), the last line {"ok": true,
 "device": ...}.  Development options, none of which prints the result lines:
 ``--kernels-only`` stops after phase 4; ``--only=9,10`` runs phases 1, 2
 and the named ones of 9, 9c, 9t, 10, 11 (11 after phase 7), 12, 12c, 13, 15
-(with the row-path solves of 12a / 12b and phase 7 it compares with), 14 (with the
+(with the row-path solves of 12a / 12b and phase 7 it compares with), 16 (with
+phase 7's solve and phase 6's operator, built by the phase itself), 14 (with the
 single-device solves of phases 6 and 13a it compares with), 14k (the band K+ apply
 by the subdomains its calls cover, which is why phase 14's one-device references make
 the ranks' calls), 11c (the ex3
@@ -239,6 +257,9 @@ DENSE_RESID_LIMIT = {"poisson": 2.3e-4, "elasticity": 1.9e-3}
 #: the tensor cores (a card set below 700 W runs slower)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+#: the card's name and power limit as nvidia-smi gives them (set by main),
+#: printed beside phase 16's times
+CARD = "card not queried"
 
 
 def log(msg):
@@ -636,7 +657,9 @@ def phase_main(prob, t_host_prob, dev):
     ref = None
     if solver._pf is not None:
         ref = dict(its1=its1, its2=its2, x1=r1.x_global, ms_per_it=1e3 * (t2 - t1) / sum(its2))
-    return launches, ref
+    # phase 16's K: the regularized stencil (not its factors) and its blocks' host diagonal
+    kreg = (solver.kplus_post.op, north_star_host_diagonal(prob, solver.kplus_post.op.base.nlp))
+    return launches, ref, kreg
 
 
 def box_kkt(A, b, far, cap, x):
@@ -3291,6 +3314,214 @@ def phase_examples(dev, main_its=None):
     return n_gather, n_sell
 
 
+def phase_api(dev, jb_rcm=None, qp_ref=None, kreg=None, twin_its=None):
+    """16: the JAX package's public names on the card, through
+    ``import permon_tpu_torch as pt`` alone, on problems earlier phases
+    built: (a) ``__graft_entry__.entry``'s recipe (the ex1 obstacle QP at
+    n = 1024 on ``pt.Dia``, ``pt.mprgp`` capped at 200 iterations) against
+    the same calls on CPU tensors; (b) phase 7's jbearing-RCM QP through
+    ``pt.make_operator`` -> SEll and ``pt.mprgp`` directly: its count and x
+    bitwise those of phase 7's ``pt.solve`` (``qp_ref``), and
+    ``pt.Scaled(..., 2.0).diagonal()`` of the unpermuted problem's ``pt.Dia``
+    twice scipy's diagonal (SEll has no diagonal in either package); (c) the
+    north star's ``RegularizedBlockDia`` (phase 6's K, ``kreg``: the operator
+    and the host diagonal of its blocks): ``diagonal()`` on the card bitwise
+    that of CPU tensors and of the host's scipy blocks with the fixing-dof
+    correction added; (d) the twin's dual (phase 5's problem and recipe,
+    through the transform chain) by ``cg(..., monitor=True)``: one printed
+    line per convergence test (iterations + 1), counts and x bitwise those of
+    ``monitor=False``, the period per iteration of both (five runs of each,
+    alternated after a warm-up) and one line's host cost alone; the same
+    dual on the plain gather tables: counts and x bitwise, no launch.  The
+    kernels' launches are counted from 0."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import permon_tpu_torch as pt
+    from permon_tpu_torch.core.sell import SEll, gather_apply, sell_mv
+    from permon_tpu_torch.examples import ex1
+    from permon_tpu_torch.feti.large import assemble_qp_sparse
+    from permon_tpu_torch.problems import build_jbearing, build_sparse, rcm_permuted
+    from permon_tpu_torch.qp.transforms import dualize, enforce_eq_by_projector, homogenize_eq
+    from permon_tpu_torch.solvers.cg import cg
+
+    failures = []
+    t_all = time.perf_counter()
+    gather_apply.launches = sell_mv.launches = 0  # count this phase's launches only
+
+    # (a) the graft entry's recipe
+    A, b, lb = ex1.build(1024)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        kw = {} if where == "cuda" else dict(device="cpu")  # the card: nothing but the default
+        op = pt.Dia.from_scipy(sp.csr_matrix(A), **kw)
+        t0 = time.perf_counter()
+        res = pt.mprgp(pt.QP.create(op, b, lb=lb, **kw), tol=pt.Tolerances(max_it=200))
+        torch.cuda.synchronize(dev)
+        runs[where] = (res, time.perf_counter() - t0)
+    (rg, tg), (rc, _) = runs["cuda"], runs["cpu"]
+    xg = rg.x.cpu().numpy()
+    dx = float(np.abs(xg - rc.x.numpy()).max())
+    log(f"[api] (a) pt.Dia + pt.mprgp (n = 1024, max_it 200) on {rg.x.device}: reason "
+        f"{rg.reason}, {rg.iterations} iterations, rnorm {rg.rnorm:.6e} ({tg:.3f} s, {CARD}); "
+        f"CPU tensors: {rc.iterations} iterations, rnorm {rc.rnorm:.6e}; max |x_card - x_cpu| "
+        f"{dx:.3e}")
+    if (rg.x.device.type != "cuda" or rg.iterations != rc.iterations or not dx <= 1e-9
+            or not np.isfinite(rg.rnorm) or not (xg >= lb).all()):
+        failures.append(f"(a): {rg.iterations} vs {rc.iterations} iterations, dx {dx}")
+
+    # (b) jbearing-RCM through make_operator -> SEll, pt.mprgp against pt.solve
+    if jb_rcm is None:
+        jb_rcm = rcm_permuted(*build_jbearing(*JBEARING))
+    Ap, bp, lbp, ubp, _ = jb_rcm
+    tol = pt.Tolerances(rtol=1e-6, atol=1e-8)  # phase 7's
+    qp = pt.QP.create(pt.make_operator(Ap), bp, lb=lbp, ub=ubp)
+    if not isinstance(qp.A, SEll):
+        failures.append(f"(b): make_operator gave {type(qp.A).__name__}")
+    if qp_ref is None:  # --only=16: phase 7's pt.solve, here
+        qp_ref = pt.solve(pt.QP.create(Ap, bp, lb=lbp, ub=ubp), tol=tol)
+    n0 = sell_mv.launches
+    rm, tm = timed_call(lambda: pt.mprgp(qp, tol=tol))
+    same = torch.equal(rm.x, qp_ref.x)
+    log(f"[api] (b) pt.mprgp on pt.make_operator's {type(qp.A).__name__}: reason {rm.reason}, "
+        f"counts {qp_counts(rm)} ({tm:.3f} s, {CARD}; {sell_mv.launches - n0} sell_mv launches); "
+        f"phase 7's pt.solve {qp_counts(qp_ref)}; x bitwise equal {same}")
+    if rm.reason != 2 or qp_counts(rm) != qp_counts(qp_ref) or not same:
+        failures.append(f"(b): mprgp {qp_counts(rm)} reason {rm.reason} against solve "
+                        f"{qp_counts(qp_ref)}, x bitwise {same}")
+    Aj = build_jbearing(*JBEARING)[0]
+    dj = pt.Scaled(pt.Dia.from_scipy(Aj), 2.0).diagonal().cpu().numpy()
+    same_d = np.array_equal(dj, 2.0 * Aj.diagonal())
+    log(f"[api] (b) pt.Scaled(pt.Dia (unpermuted jbearing), 2.0).diagonal() = 2 x scipy's "
+        f"diagonal, bitwise: {same_d}")
+    if not same_d:
+        failures.append("(b): Scaled(Dia).diagonal() != 2 x scipy's diagonal")
+
+    # (c) the north star's regularized K
+    if kreg is None:  # --only=16: phase 6's operator, built here (f32 factors as there)
+        prob = build_sparse(*NORTH_STAR)
+        _, kp, _, _ = assemble_qp_sparse(prob, pt.FetiOptions(gluing="nonred"),
+                                         kplus_dtype=torch.float32, kplus_refine=2, device=dev)
+        kreg = (kp.op, north_star_host_diagonal(prob, kp.op.base.nlp))
+        del prob, kp
+    op, host_k = kreg
+    t0 = time.perf_counter()
+    dg = op.diagonal()
+    torch.cuda.synchronize(dev)
+    t_d = time.perf_counter() - t0
+    cpu_op = op.replace(base=op.base.replace(data=op.base.data.cpu()), idx=op.idx.cpu(),
+                        q=op.q.cpu(), bi=op.bi.cpu())
+    dc = cpu_op.diagonal()
+    ns, nlp = host_k.shape
+    idx, q, bi = op.idx.cpu().numpy(), op.q.cpu().numpy(), op.bi.cpu().numpy()
+    kf = idx.shape[1]
+    host = host_k.copy()
+    for s in range(ns):  # diag(K_s + the correction scattered into the block)
+        g = bi[s] * op.NB + idx[s]
+        host[s] += sp.coo_matrix((q[s].ravel(), (np.repeat(g, kf), np.tile(g, kf))),
+                                 shape=(nlp, nlp)).diagonal()
+    dgh = dg.cpu()
+    same_c, same_h = torch.equal(dgh, dc), np.array_equal(dgh.numpy(), host.reshape(-1))
+    n_corr = int((host.reshape(-1) != host_k.reshape(-1)).sum())
+    log(f"[api] (c) RegularizedBlockDia.diagonal() of the north star ({ns} x {nlp}, {n_corr} "
+        f"corrected dofs) on the card {1e3 * t_d:.3f} ms ({CARD}): bitwise the CPU tensors' "
+        f"{same_c}, bitwise the host scipy blocks' with the fixing-dof correction {same_h}")
+    if not (same_c and same_h and n_corr > 0):
+        failures.append(f"(c): card = CPU {same_c}, card = host {same_h}, corrected {n_corr}")
+    d2 = pt.Scaled(op, 2.0).diagonal()
+    if not torch.equal(d2, 2.0 * dg):
+        failures.append("(c): Scaled(RegularizedBlockDia).diagonal() != 2 x its diagonal")
+    del dg, dc, cpu_op, d2
+
+    # (d) the twin's dual by cg(monitor=True), and once more on plain tables
+    qt, kp, _, _ = assemble_qp_sparse(build_sparse(*TWIN), pt.FetiOptions(gluing="nonred"),
+                                      kplus_dtype=torch.float32, kplus_refine=2, device=dev)
+
+    def twin_dual(q):
+        dual, _ = dualize(q, kplus=kp.replace(refine=0))
+        if dual.cE is not None:
+            dual, _ = homogenize_eq(dual)
+        return enforce_eq_by_projector(dual)[0], dual.pf.apply_p
+
+    proj, apply_p = twin_dual(qt)
+    ttol = pt.Tolerances(rtol=1e-5)
+
+    def run(monitor):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res, t = timed_call(lambda: cg(proj, tol=ttol, project=apply_p, monitor=monitor))
+        lines = [ln for ln in out.getvalue().splitlines() if " CG ||Pr||=" in ln]
+        return res, t / max(res.iterations, 1), lines
+
+    n0 = gather_apply.launches
+    quiet, _, _ = run(False)  # warm-up
+    n_g = gather_apply.launches - n0
+    periods = {False: [], True: []}
+    same, lines = True, []
+    for monitor in (False, True) * 5:  # alternated, so that run order lands on neither side
+        res, per, ln = run(monitor)
+        periods[monitor].append(per)
+        if monitor:
+            lines = ln
+            same &= len(ln) == res.iterations + 1
+        same &= (res.iterations, res.reason) == (quiet.iterations, quiet.reason) and torch.equal(
+            res.x, quiet.x)
+    for ln in (lines[:2] + ["..."] + lines[-1:]) if len(lines) > 3 else lines:
+        log(f"[api] (d)   {ln}")
+    p_loud, p_quiet = (float(np.median(periods[m])) for m in (True, False))
+    m_loud, m_quiet = (min(periods[m]) for m in (True, False))
+    buf = io.StringIO()  # the monitor's own host cost: its line, formatted and printed
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        for it in range(1000):
+            print(f"{it:>3} CG ||Pr||={quiet.rnorm:.10e}")
+    t_line = (time.perf_counter() - t0) / 1000
+    log(f"[api] (d) the twin's dual cg: reason {quiet.reason}, {quiet.iterations} iterations "
+        f"(phase 5's first pass {twin_its[0] if twin_its else 'not run'}), {n_g} gather_apply "
+        f"launches a run; 5 monitor=True runs alternated with 5 monitor=False: {len(lines)} lines "
+        f"a loud run, counts and x bitwise equal {same}; period per iteration (median, least) "
+        f"{1e3 * p_loud:.3f}, {1e3 * m_loud:.3f} ms with the monitor, {1e3 * p_quiet:.3f}, "
+        f"{1e3 * m_quiet:.3f} ms without; one monitor line alone {1e6 * t_line:.2f} us on the "
+        f"host ({CARD})")
+    if quiet.reason != 2 or len(lines) != quiet.iterations + 1 or not same or n_g <= 0:
+        failures.append(f"(d): reason {quiet.reason}, {len(lines)} lines for "
+                        f"{quiet.iterations} iterations, bitwise {same}, launches {n_g}")
+    proj_p, apply_pp = twin_dual(qt.replace(BE=qt.BE.with_kernel(False)))
+    n0 = gather_apply.launches
+    plain = cg(proj_p, tol=ttol, project=apply_pp)
+    n_p = gather_apply.launches - n0
+    same_p = (plain.iterations, plain.reason) == (quiet.iterations, quiet.reason) and torch.equal(
+        plain.x, quiet.x)
+    log(f"[api] (d) the twin's dual on the plain gather version: {plain.iterations} iterations, "
+        f"x bitwise equal {same_p}, kernel launches {n_p}")
+    if not same_p or n_p:
+        failures.append(f"(d): plain tables {plain.iterations} iterations, x bitwise {same_p}, "
+                        f"launches {n_p}")
+    n_gather, n_sell = gather_apply.launches, sell_mv.launches
+    log(f"[api] phase 16 {time.perf_counter() - t_all:.1f} s; launches: gather_apply "
+        f"{n_gather}, sell_mv {n_sell}")
+    if n_gather <= 0 or n_sell <= 0:
+        failures.append(f"launches gather_apply {n_gather}, sell_mv {n_sell}")
+    if failures:
+        raise AssertionError("phase 16: " + "; ".join(failures))
+    return n_gather, n_sell
+
+
+def north_star_host_diagonal(prob, nlp):
+    """(ns, nlp) diagonals of the north star's subdomain blocks on the host
+    (scipy), padding rows 1 as ``BlockDia.from_scipy_blocks`` pads them."""
+    import numpy as np
+
+    out = np.ones((prob.ns, nlp))
+    for s, K in enumerate(prob.K_blocks):
+        out[s, : K.shape[0]] = K.diagonal()
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -3311,7 +3542,9 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
-    log(f"[device] {smi.stdout.strip().splitlines()[0]}")
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(f"[device] {CARD}")
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -3346,6 +3579,7 @@ def main():
                           ("14", lambda: phase_ranks(dev)),
                           ("14k", lambda: phase_kplus_batches(dev)),
                           ("15", lambda: phase_examples(dev)),
+                          ("16", lambda: phase_api(dev)),
                           ("11", lambda: phase_qp_rest(*phase_qp_only(dev))),
                           ("11c", lambda: [phase_ex3(int(n), dev)
                                            for n in opts.get("--ex3-n", str(EX3_N)).split(",")]),
@@ -3383,12 +3617,12 @@ def main():
         return 0
 
     twin_its = phase_twin(dev)
-    launches, main_ref = phase_main(prob, t_host_prob, dev)
+    launches, main_ref, kreg = phase_main(prob, t_host_prob, dev)
     del prob
     sell_launches, res64, t64 = phase_qp(jb, jb_rcm, t_host_jb, dev)
     sell_launches += phase_qp_rest(jb_rcm, res64, t64, dev)
     qp_its = res64.iterations
-    del jb, res64
+    del jb
     launches += phase_contact(dev)
     launches += phase_elasticity(elastic, t_host_elastic, dev)
     del elastic
@@ -3403,16 +3637,20 @@ def main():
     examples_gather, examples_sell = phase_examples(dev, main_ref and main_ref["its1"])
     launches += examples_gather
     sell_launches += examples_sell
+    api_gather, api_sell = phase_api(dev, jb_rcm, res64, kreg, twin_its)
+    del res64, kreg
+    launches += api_gather
+    sell_launches += api_sell
 
     print(json.dumps({"kernels": [
         {"name": "gather_apply", "route": "cuda",
          "source": "permon_tpu_torch/csrc/gather_apply.cu",
          "replaces": "permon_tpu/core/sell.py:417", "launches": launches,
-         "launches_examples": examples_gather, **gather_rec},
+         "launches_examples": examples_gather, "launches_api": api_gather, **gather_rec},
         {"name": "sell_mv", "route": "cuda",
          "source": "permon_tpu_torch/csrc/sell_mv.cu",
          "replaces": "permon_tpu/core/sell.py:504", "launches": sell_launches,
-         "launches_examples": examples_sell, **spmv_rec},
+         "launches_examples": examples_sell, "launches_api": api_sell, **spmv_rec},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,7 +46,10 @@ and the SVM (:mod:`permon_tpu_torch.svm`); and the multi-device layer
 per rank, ``make_mesh`` / ``make_mesh2``), with ``FetiOptions(mesh=...)``
 on the large, dense and leaf paths, ``FetiOptions(qppf_redundancy=True)``,
 ``leaf_dual_qp(mesh=...)`` and the redundancy-group coarse factor
-``Projector.cp_dist``.  Entry points run on the card: ``device=None``
+``Projector.cp_dist``.  The namespace holds every public name of
+``permon_tpu`` (its ``__all__``) but ``enable_compilation_cache``, and the
+``solvers``, ``qp``, ``qpc``, ``pc`` and ``core`` subpackages re-export what
+the JAX ones do.  Entry points run on the card: ``device=None``
 means the first CUDA device (under a mesh, the rank's) and raises without
 one; pass ``device="cpu"`` for the CPU.
 """
@@ -104,15 +107,36 @@ def not_ported(what: str) -> NotImplementedError:
     )
 
 
-# the public names of the general QP path; imported last because the
-# submodules import the helpers above from this module
-from .core.convergence import ConvergedReason, Tolerances  # noqa: E402
-from .core.linop import Penalized, Timer, VStack, aslinearoperator  # noqa: E402
+# the public names: the JAX package's (permon_tpu/__init__.py) and the
+# port's own; imported last because the submodules import the helpers above
+# from this module
+from .core.linop import (  # noqa: E402
+    Dense,
+    Diagonal,
+    Ell,
+    Identity,
+    LinearOperator,
+    OneRow,
+    Penalized,
+    Product,
+    Scaled,
+    Sum,
+    Timer,
+    Transpose,
+    VStack,
+    aslinearoperator,
+)
+from .core.dia import Dia  # noqa: E402
 from .core.matutils import make_operator  # noqa: E402
+from .core.eig import max_eigenvalue  # noqa: E402
+from .core.convergence import ConvergedReason, Tolerances  # noqa: E402
+from .core.precision import MixedPrecision, with_precision  # noqa: E402
+from .core.detred import set_deterministic  # noqa: E402
+from .core import vec  # noqa: E402
 from .qp.qp import QP  # noqa: E402
 from .qpc.box import BoxConstraint  # noqa: E402
 from .solvers.driver import make_solver, solve  # noqa: E402
-from .solvers.mprgp import MPRGPOptions  # noqa: E402
+from .solvers.mprgp import MPRGPOptions, mprgp  # noqa: E402
 from .solvers.smalxe import SMALXEOptions, smalxe  # noqa: E402
 from .pc.dual import PCDual  # noqa: E402
 from .feti.assembly import FetiProblem  # noqa: E402
@@ -120,9 +144,16 @@ from .feti.solve import FetiOptions, FetiSolver, feti_solve  # noqa: E402
 from .sys.options import Options, solve_from_options  # noqa: E402
 from . import viewers  # noqa: E402
 
-__all__ = ["Struct", "DeviceLike", "resolve_device", "as_torch_dtype", "not_ported",
-           "QP", "solve", "make_solver", "make_operator", "aslinearoperator",
-           "Tolerances", "ConvergedReason", "BoxConstraint", "MPRGPOptions",
-           "SMALXEOptions", "smalxe", "PCDual", "VStack", "Penalized",
-           "FetiProblem", "FetiOptions", "FetiSolver", "feti_solve", "Timer", "Options",
-           "solve_from_options", "viewers"]
+__all__ = [
+    # the JAX package's names (all but enable_compilation_cache, which
+    # points JAX's compilation cache at a directory)
+    "LinearOperator", "Dense", "Diagonal", "Ell", "Identity", "OneRow", "Penalized",
+    "Product", "Scaled", "Sum", "Timer", "Transpose", "aslinearoperator", "Dia",
+    "make_operator", "max_eigenvalue", "ConvergedReason", "Tolerances", "MixedPrecision",
+    "with_precision", "set_deterministic", "vec", "QP", "solve", "make_solver",
+    "MPRGPOptions", "mprgp", "Options", "solve_from_options",
+    # the port's own
+    "Struct", "DeviceLike", "resolve_device", "as_torch_dtype", "not_ported",
+    "BoxConstraint", "SMALXEOptions", "smalxe", "PCDual", "VStack", "FetiProblem",
+    "FetiOptions", "FetiSolver", "feti_solve", "viewers",
+]

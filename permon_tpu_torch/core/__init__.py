@@ -1,1 +1,3 @@
 """Operators, fixed-tree reductions, the band K+ and the gather kernel."""
+
+from . import convergence, eig, linop

@@ -51,10 +51,10 @@ def enabled() -> bool:
     return _DETERMINISTIC
 
 
-def det_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Sum along ``dim`` as a fixed binary tree of elementwise adds: pair
+def det_sum(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Sum along ``axis`` as a fixed binary tree of elementwise adds: pair
     element i with element i + n//2, carry an odd tail element along."""
-    x = torch.movedim(x, dim, -1)
+    x = torch.movedim(x, axis, -1)
     n = x.shape[-1]
     while n > 1:
         half = n // 2
@@ -73,7 +73,7 @@ def det_dots(pairs):
     """Tuple of <x_i, y_i> as ONE batched fixed tree; each row's order is
     identical to :func:`det_dot` of that pair alone (bitwise equal)."""
     prods = torch.stack([(torch.conj(x) * y).reshape(-1) for x, y in pairs])
-    out = det_sum(prods, dim=-1)
+    out = det_sum(prods, axis=-1)
     return tuple(out[i] for i in range(len(pairs)))
 
 
@@ -98,7 +98,7 @@ def det_gram(G: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((k, k), dtype=G.dtype, device=G.device)
     for c0 in range(0, n, chunk):
         Gc = G[:, c0: c0 + chunk]
-        out = out + det_sum(Gc[:, None, :] * Gc[None, :, :], dim=-1)
+        out = out + det_sum(Gc[:, None, :] * Gc[None, :, :], axis=-1)
     return out
 
 

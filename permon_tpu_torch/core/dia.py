@@ -141,6 +141,11 @@ class BlockDia(LinearOperator):
 
     rmv = mv  # symmetric stiffness blocks
 
+    def diagonal(self):
+        if 0 in self.offsets:
+            return self.data[:, self.offsets.index(0), :].reshape(-1)
+        return torch.zeros(self.n, dtype=self.data.dtype, device=self.data.device)
+
 
 @dataclasses.dataclass
 class RegularizedBlockDia(LinearOperator):
@@ -183,3 +188,16 @@ class RegularizedBlockDia(LinearOperator):
 
     rmv = mv  # symmetric
 
+    def diagonal(self):
+        """The base diagonal plus q's diagonal at ``bi * NB + idx`` of each
+        block.  A block's fixing dofs are distinct, so slot j adds to one
+        dof per block: kf indexed adds over unique indices, in slot order
+        (padded slots add q = 0), and no atomics on CUDA."""
+        ns, _, nlp = self.base.data.shape
+        d = self.base.diagonal().reshape(ns, nlp).clone()
+        gidx = self.bi[:, None] * self.NB + self.idx  # (ns, kf) local dofs
+        qd = torch.diagonal(self.q, dim1=1, dim2=2).to(d.dtype)
+        rows = torch.arange(ns, device=d.device)
+        for j in range(gidx.shape[1]):
+            d[rows, gidx[:, j]] += qd[:, j]
+        return d.reshape(-1)

@@ -110,10 +110,10 @@ class DenseTree(Dense):
         xa = x[None, :].to(self.a.dtype)
         if k > 1 and k * m > self.CHUNK_ELEMS:
             rows = max(self.CHUNK_ELEMS // max(m, 1), 1)
-            outs = [det_sum(self.a[i0:i0 + rows] * xa, dim=-1)
+            outs = [det_sum(self.a[i0:i0 + rows] * xa, axis=-1)
                     for i0 in range(0, k, rows)]
             return torch.cat(outs).to(x.dtype)
-        return det_sum(self.a * xa, dim=-1).to(x.dtype)
+        return det_sum(self.a * xa, axis=-1).to(x.dtype)
 
     def rmv(self, y):
         from .detred import det_sum
@@ -122,10 +122,10 @@ class DenseTree(Dense):
         ya = y[:, None].to(self.a.dtype)
         if m > 1 and k * m > self.CHUNK_ELEMS:
             cols = max(self.CHUNK_ELEMS // max(k, 1), 1)
-            outs = [det_sum(self.a[:, j0:j0 + cols] * ya, dim=0)
+            outs = [det_sum(self.a[:, j0:j0 + cols] * ya, axis=0)
                     for j0 in range(0, m, cols)]
             return torch.cat(outs).to(y.dtype)
-        return det_sum(self.a * ya, dim=0).to(y.dtype)
+        return det_sum(self.a * ya, axis=0).to(y.dtype)
 
 
 @dataclasses.dataclass
@@ -201,6 +201,13 @@ class Ell(LinearOperator):
         cols[rows, slot] = a.indices
         vals[rows, slot] = a.data
         return cls.from_arrays(cols, vals, (m, n), device=dev)
+
+    @classmethod
+    def from_coo(cls, rows, cols, vals, shape, device=None) -> "Ell":
+        """Build from host COO triplets (duplicates summed, as scipy does)."""
+        import scipy.sparse as sp
+
+        return cls.from_scipy(sp.coo_matrix((vals, (rows, cols)), shape=shape), device=device)
 
     @classmethod
     def from_arrays(cls, cols, vals, shape, device=None) -> "Ell":

@@ -4,7 +4,7 @@ The policy keeps the expensive part — operator STORAGE and matvecs — in
 f32, and the cheap-but-sensitive part — dot products and recurrence
 scalars — in f64:
 
-- ``cast_floats(obj, dtype)`` re-stores every float tensor of an operator
+- ``cast_floats(tree, dtype)`` re-stores every float tensor of an operator
   (a dataclass, walked recursively) in the given dtype, index tensors
   untouched;
 - :class:`MixedPrecision` wraps a low-precision operator behind an f64
@@ -34,23 +34,23 @@ from .linop import LinearOperator
 POLICIES = ("f64", "mixed", "f32", "bf16_mixed")
 
 
-def cast_floats(obj, dtype):
-    """Re-store every float tensor reachable from ``obj`` (a tensor, a
+def cast_floats(tree, dtype):
+    """Re-store every float tensor reachable from ``tree`` (a tensor, a
     dataclass, a tuple or list of those) in ``dtype``; ints/bools and
     everything else are kept."""
     from .extension import GatherTable
 
-    if isinstance(obj, torch.Tensor):
-        return obj.to(dtype) if obj.dtype.is_floating_point else obj
-    if isinstance(obj, GatherTable):  # keeps the padded plane stride of its idx
-        return obj.cast(dtype)
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.replace(obj, **{
-            f.name: cast_floats(getattr(obj, f.name), dtype)
-            for f in dataclasses.fields(obj)})
-    if isinstance(obj, (tuple, list)):
-        return type(obj)(cast_floats(v, dtype) for v in obj)
-    return obj
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.dtype.is_floating_point else tree
+    if isinstance(tree, GatherTable):  # keeps the padded plane stride of its idx
+        return tree.cast(dtype)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: cast_floats(getattr(tree, f.name), dtype)
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(cast_floats(v, dtype) for v in tree)
+    return tree
 
 
 def _storage_dtype(obj):

@@ -15,7 +15,7 @@ CONVERGED_RTOL, 197 iterations, 209 Hessian mults, 179 CG / 11 expansion /
 
 from __future__ import annotations
 
-from ..problems import build_ex2
+from ..problems import build_ex2, fobst  # noqa: F401  (fobst: the JAX example's helper)
 
 
 def build(n: int = 10):

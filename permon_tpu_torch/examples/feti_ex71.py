@@ -24,7 +24,7 @@ nsize 6, -cells 7,8,9, DMDA grid (1,2,3)): CONVERGED_RTOL in 16 (nonred),
 
 from __future__ import annotations
 
-from ..problems import build_ex71
+from ..problems import build_ex71, q1_elasticity_emat, q1_poisson_emat  # noqa: F401
 
 
 def build(cells=(7, 8, 9), grid=(1, 2, 3), dirichlet_diag="assembled", pde="poisson"):

@@ -604,6 +604,13 @@ def assembled_system(cells):
 # ------------------------------------------------------------ general QP path
 
 
+def fobst(i, n: int):
+    """The obstacle sin(4 pi x - pi/6)/2 - 2 at node i of n (x = i h,
+    h = 1/(n-1)); ``i`` an int or an integer array (examples/ex2.py:25)."""
+    h = 1.0 / (n - 1)
+    return np.sin(4 * np.pi * i * h - np.pi / 6.0) / 2 - 2
+
+
 def _obstacle_1d(n: int, constrained: np.ndarray):
     """The FD system of -u'' = -15 on [0, 1], u(0) = u(1) = 0, Dirichlet
     rows kept as identity rows with the couplings to them dropped, and the
@@ -618,7 +625,7 @@ def _obstacle_1d(n: int, constrained: np.ndarray):
     hi = i[inner & (i != n - 2)]
     A[hi, hi + 1] = -1.0
     b = np.where(inner, -15 * h * h * 2, 0.0)
-    obst = np.sin(4 * np.pi * i * h - np.pi / 6.0) / 2 - 2
+    obst = fobst(i, n)
     return A, b, inner & constrained, obst
 
 

@@ -145,7 +145,7 @@ class Projector(Struct):
                 from ..core.detred import det_sum
 
                 return det_sum(self.ggt_inv * v[None, :].to(self.ggt_inv.dtype),
-                               dim=-1).to(v.dtype)
+                               axis=-1).to(v.dtype)
             return (self.ggt_inv @ v.to(self.ggt_inv.dtype)).to(v.dtype)
         vc = v.to(self.ggt_chol.dtype)[:, None]
         return torch.cholesky_solve(vc, self.ggt_chol)[:, 0].to(v.dtype)

@@ -1,1 +1,3 @@
 """Constraint objects (the QPC analog)."""
+
+from .box import BoxConstraint

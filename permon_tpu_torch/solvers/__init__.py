@@ -1,1 +1,4 @@
-"""The dual solvers (CG / PCPG)."""
+"""The solvers: CG / PCPG, MPRGP, SMALXE, the TAO analog and the driver."""
+
+from .mprgp import MPRGPOptions, MPRGPResult, mprgp
+from .driver import solve

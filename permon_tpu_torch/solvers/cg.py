@@ -5,7 +5,8 @@ the projected quantities).
 
 The JAX ``lax.while_loop`` becomes a Python loop with ONE host read per
 iteration: the residual norm and the breakdown flag of the previous step
-come back together and feed :func:`converged_default`.
+come back together and feed :func:`converged_default` (and the
+``monitor`` line, which so costs no read of its own).
 """
 
 from __future__ import annotations
@@ -33,12 +34,15 @@ class CGResult(Struct):
 
 
 def cg(qp: QP, tol: Tolerances = Tolerances(), precond: Optional[Callable] = None,
-       project: Optional[Callable] = None, history: int = 0) -> CGResult:
+       project: Optional[Callable] = None, monitor: bool = False,
+       history: int = 0) -> CGResult:
     """(Projected, preconditioned) CG on 1/2 x'Ax - b'x.  With ``project``
     = P this is PCPG with reprojection every iteration (pcpg.c:51-134);
     convergence is tested on ||P r||.  ``precond`` = M gives z = M w and,
-    being applied, a second projection y = P z.  ``history`` > 0 records
-    that many residual norms."""
+    being applied, a second projection y = P z.  ``monitor`` prints
+    ``{it:>3} CG ||Pr||={rnorm:.10e}`` before each convergence test, as
+    the JAX package does.  ``history`` > 0 records that many residual
+    norms."""
     from ..core.precision import dot_bundler, reducers
 
     A, b = qp.A, qp.b
@@ -78,6 +82,8 @@ def cg(qp: QP, tol: Tolerances = Tolerances(), precond: Optional[Callable] = Non
             # curvature — the iterate was kept, stop with CONVERGED_ATOL
             reason = int(ConvergedReason.CONVERGED_ATOL)
             break
+        if monitor:
+            print(f"{it:>3} CG ||Pr||={rnorm:.10e}")
         if nh:
             hist[min(it, nh - 1)] = rnorm_t
         reason = converged_default(it, rnorm, ttol=ttol, atol=tol.atol,
@@ -107,7 +113,8 @@ def cg(qp: QP, tol: Tolerances = Tolerances(), precond: Optional[Callable] = Non
                     nmv=nmv, rnorm_history=hist if nh else None)
 
 
-def pcpg(qp: QP, tol: Tolerances = Tolerances(), precond: Optional[Callable] = None) -> CGResult:
+def pcpg(qp: QP, tol: Tolerances = Tolerances(), precond: Optional[Callable] = None,
+         monitor: bool = False) -> CGResult:
     """PCPG, projected preconditioned CG for an equality-constrained QP
     (the QPSPCPG solver type, reference: src/qps/impls/pcpg/pcpg.c).  A
     nonzero cE is homogenized away first, as QPSSolve_PCPG does
@@ -122,7 +129,7 @@ def pcpg(qp: QP, tol: Tolerances = Tolerances(), precond: Optional[Callable] = N
     if qp.cE is not None:
         qp, post = homogenize_eq(qp)
         qp = ensure_pf(qp)
-    res = cg(qp, tol=tol, precond=precond, project=qp.pf.apply_p)
+    res = cg(qp, tol=tol, precond=precond, project=qp.pf.apply_p, monitor=monitor)
     if post is not None:
         res = res.replace(x=post(Solution(x=res.x)).x)
     return res

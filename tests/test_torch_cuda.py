@@ -506,6 +506,40 @@ def test_fixing_dof_corrections_on_card_are_deterministic(cuda_device):
         assert float((got.cpu() - want).abs().max()) <= 1e-10 * float(want.abs().max())
 
 
+def test_regularized_diagonal_on_card_equals_cpu_bitwise(cuda_device):
+    """RegularizedBlockDia.diagonal (the fixing-dof correction added by
+    indexed adds over unique indices, no atomics) on the north-star twin:
+    bitwise equal to the CPU result and across two calls on the card."""
+    from permon_tpu_torch.feti.large import assemble_qp_sparse
+
+    prob = build_sparse((20,) * 3, (4,) * 3)
+    opts = FetiOptions(gluing="nonred")
+    _, kp_g, _, _ = assemble_qp_sparse(prob, opts, kplus_refine=1, device=cuda_device)
+    _, kp_c, _, _ = assemble_qp_sparse(prob, opts, kplus_refine=1, device="cpu")
+    d1, d2 = kp_g.op.diagonal(), kp_g.op.diagonal()
+    dc = kp_c.op.diagonal()
+    assert torch.equal(d1, d2) and torch.equal(d1.cpu(), dc)
+    assert not torch.equal(dc, kp_c.op.base.diagonal())  # the correction is in it
+
+
+def test_cg_monitor_on_card_keeps_the_iterate(cuda_device, capsys):
+    """cg(monitor=True) on the card: one line per convergence test and the
+    iterate bitwise equal to that of monitor=False."""
+    from permon_tpu_torch.core.linop import Dense
+    from permon_tpu_torch.qp.qp import QP
+    from permon_tpu_torch.solvers.cg import cg
+
+    rng = np.random.RandomState(11)
+    M = rng.standard_normal((30, 30))
+    A = torch.as_tensor(M @ M.T + 30 * np.eye(30), device=cuda_device)
+    qp = QP(A=Dense.create(A), b=torch.as_tensor(rng.standard_normal(30), device=cuda_device))
+    loud = cg(qp, tol=Tolerances(rtol=1e-10), monitor=True)
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if " CG ||Pr||=" in ln]
+    quiet = cg(qp, tol=Tolerances(rtol=1e-10))
+    assert len(lines) == loud.iterations + 1 and capsys.readouterr().out == ""
+    assert loud.iterations == quiet.iterations and torch.equal(loud.x, quiet.x)
+
+
 def test_detect_nullspace_of_an_array_runs_on_the_card(cuda_device):
     """detect_nullspace_dense places an array on the card when no device
     is named, and finds the free-free Laplacian's constant mode as the CPU

@@ -1,12 +1,16 @@
 """permon_tpu_torch operators and host setup functions against the JAX package on
 the same inputs (numpy seeds), with the tolerance stated per check:
 
-- fixed-tree reductions, DenseTree, BlockDia, RegularizedBlockDia: bitwise
-  in f64 (same elementwise adds in the same order);
+- fixed-tree reductions (``det_sum(x, axis=)`` under the JAX package's
+  keyword), DenseTree, BlockDia, RegularizedBlockDia (``mv`` and
+  ``diagonal``): bitwise in f64 (same elementwise adds in the same order);
+- Ell.from_coo: the slots bitwise, the products to 1e-14;
 - factor_from_dia_sm: f64 rtol 1e-12, f32 rtol 1e-4 (LAPACK Cholesky and
   triangular inverse of two libraries); BandCholInv.mv fed the SAME factor
   arrays: rtol 1e-13; K Kreg^-1 K = K to 1e-10;
-- Projector.apply_p: 1e-13; PCPG: same count and reason, x to 1e-12;
+- Projector.apply_p: 1e-13; PCPG: same count and reason, x to 1e-12; the
+  ``monitor`` lines of cg / pcpg: as many, the same iteration numbers, the
+  norms to 1e-9 relative, x bitwise equal to that of ``monitor=False``;
 - host setup (build_sparse, build_gluing, constant_nullspace_columns,
   assemble_qp_sparse tables): np.array_equal.
 """
@@ -69,10 +73,14 @@ def test_det_sum_and_dots_bitwise(n):
     ref = jdet.det_dots([(jnp.asarray(x), jnp.asarray(y)), (jnp.asarray(y), jnp.asarray(z))])
     assert [float(g) for g in got] == [float(r) for r in ref]
     M = rng.standard_normal((5, n))
-    np.testing.assert_array_equal(tdet.det_sum(_t(M), dim=0).numpy(),
+    np.testing.assert_array_equal(tdet.det_sum(_t(M), axis=0).numpy(),
                                   np.asarray(jdet.det_sum(jnp.asarray(M), axis=0)))
     np.testing.assert_array_equal(tdet.det_gram(_t(M)).numpy(),
                                   np.asarray(jdet.det_gram(jnp.asarray(M))))
+    T = rng.standard_normal((3, 5, 2))
+    for axis in (0, 1, -1):  # the JAX package's keyword on each axis of a 3-D array
+        np.testing.assert_array_equal(tdet.det_sum(_t(T), axis=axis).numpy(),
+                                      np.asarray(jdet.det_sum(jnp.asarray(T), axis=axis)))
 
 
 @pytest.mark.parametrize("chunked", [False, True])
@@ -110,6 +118,56 @@ def test_blockdia_and_regularized_mv_bitwise(jax_assembled):
     np.testing.assert_array_equal(A.mv(_t(x)).numpy(), np.asarray(qp.A.mv(jnp.asarray(x))))
     np.testing.assert_array_equal(Areg.mv(_t(x)).numpy(),
                                   np.asarray(kplus.op.mv(jnp.asarray(x))))
+
+
+def test_blockdia_diagonals_bitwise(jax_assembled):
+    """``BlockDia.diagonal`` and ``RegularizedBlockDia.diagonal`` (the
+    fixing-dof correction's diagonal added at bi * NB + idx) bitwise equal
+    to the JAX package's; the wrappers that read an inner diagonal take
+    them; a stencil without offset 0 has a zero diagonal."""
+    from permon_tpu_torch.core.dia import BlockDia
+    from permon_tpu_torch.core.precision import MixedPrecision
+
+    _, qp, kplus, _ = jax_assembled
+    A = from_arrays(qp.A, "cpu")
+    Areg = from_arrays(kplus.op, "cpu")
+    d, dreg = A.diagonal().numpy(), Areg.diagonal().numpy()
+    np.testing.assert_array_equal(d, np.asarray(qp.A.diagonal()))
+    np.testing.assert_array_equal(dreg, np.asarray(kplus.op.diagonal()))
+    assert (dreg != d).sum() >= int((np.asarray(kplus.op.q) != 0).any(axis=(1, 2)).sum())
+    np.testing.assert_array_equal(tlin.Scaled(Areg, 2.0).diagonal().numpy(), 2.0 * dreg)
+    np.testing.assert_array_equal(tlin.Sum((A, Areg)).diagonal().numpy(), d + dreg)
+    np.testing.assert_array_equal(tlin.Timer(Areg).diagonal().numpy(), dreg)
+    np.testing.assert_array_equal(MixedPrecision(Areg).diagonal().numpy(), dreg)
+    keep = [k for k, o in enumerate(A.offsets) if o != 0]
+    off = BlockDia(data=A.data[:, keep], offsets=tuple(A.offsets[k] for k in keep),
+                   shape=A.shape)
+    assert 0 not in off.offsets and not off.diagonal().any()
+
+
+def test_ell_from_coo():
+    """``Ell.from_coo`` equals ``Ell.from_scipy`` on the same triplets
+    (duplicates summed); its slots equal the JAX package's
+    ``Ell.from_coo`` bitwise and its products to 1e-14."""
+    rng = np.random.RandomState(6)
+    m, n, nnz = 40, 30, 150
+    rows, cols = rng.randint(0, m, nnz), rng.randint(0, n, nnz)
+    rows[:10], cols[:10] = rows[10:20], cols[10:20]  # duplicate entries
+    vals = rng.standard_normal(nnz)
+    E = tlin.Ell.from_coo(rows, cols, vals, (m, n), device="cpu")
+    S = tlin.Ell.from_scipy(sp.coo_matrix((vals, (rows, cols)), shape=(m, n)), device="cpu")
+    for f in ("cols", "vals", "t_slots"):
+        np.testing.assert_array_equal(getattr(E, f).numpy(), getattr(S, f).numpy())
+    assert E.shape == (m, n)
+    J = jlin.Ell.from_coo(rows, cols, vals, (m, n))
+    np.testing.assert_array_equal(E.cols.numpy(), np.asarray(J.cols))
+    np.testing.assert_array_equal(E.vals.numpy(), np.asarray(J.vals))
+    # the same slots; each row / column sums them in its library's order
+    x, y = rng.standard_normal(n), rng.standard_normal(m)
+    np.testing.assert_allclose(E.mv(_t(x)).numpy(), np.asarray(J.mv(jnp.asarray(x))),
+                               rtol=1e-14, atol=1e-14)
+    np.testing.assert_allclose(E.rmv(_t(y)).numpy(), np.asarray(J.rmv(jnp.asarray(y))),
+                               rtol=1e-14, atol=1e-14)
 
 
 @pytest.mark.parametrize("dtype,rtol", [("float64", 1e-12), ("float32", 1e-4)])
@@ -246,41 +304,120 @@ def test_constant_nullspace_and_assembly_tables_equal(jax_assembled):
 # -- PCPG ----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["spd_projected", "breakdown"])
-def test_cg_matches_jax(case):
-    """Same iteration count and reason as the JAX cg on a small dense QP
-    (deterministic reductions); x within 1e-12, the residual history within
-    1e-9 relative / 1e-12 of ||P r0||."""
-    from permon_tpu.core.detred import deterministic_mode as jdm
-    from permon_tpu.qp.qp import QP as JQP
-    from permon_tpu.solvers.cg import cg as jcg
-
-    from permon_tpu_torch.core.detred import deterministic_mode as tdm
-    from permon_tpu_torch.qp.qp import QP as TQP
-    from permon_tpu_torch.solvers.cg import cg as tcg
-
+def _cg_qp(case):
+    """(A, b, G) of a small dense QP: SPD with a 3-row projector, or
+    negative curvature (stops with reason 3 at once)."""
     rng = np.random.RandomState(11)
     n = 30
     if case == "breakdown":
-        A = -np.eye(n)  # negative curvature: stops with reason 3 at once
+        A = -np.eye(n)
         G = None
     else:
         M = rng.standard_normal((n, n))
         A = M @ M.T + n * np.eye(n)
         G = rng.standard_normal((3, n))
-    b = rng.standard_normal(n)
-    tol = tconv.Tolerances(rtol=1e-10)
-    jp = tp = None
-    if G is not None:
-        jp = jproj.Projector.create(jlin.Dense.create(jnp.asarray(G))).apply_p
-        tp = tproj.Projector.create(tlin.Dense.create(_t(G))).apply_p
-    with jdm(True):
-        rj = jcg(JQP(A=jlin.Dense.create(jnp.asarray(A)), b=jnp.asarray(b)),
-                 tol=jconv.Tolerances(rtol=1e-10), project=jp, history=50)
+    return A, rng.standard_normal(n), G
+
+
+@pytest.fixture(scope="module")
+def jax_cg():
+    """The JAX package's cg on :func:`_cg_qp`'s QPs (deterministic
+    reductions, rtol 1e-10, 50 residual norms of history, the monitor on),
+    run once per case for the tests below: (result, printed text)."""
+    import contextlib
+    import io
+
+    from permon_tpu.core.detred import deterministic_mode as jdm
+    from permon_tpu.qp.qp import QP as JQP
+    from permon_tpu.solvers.cg import cg as jcg
+
+    runs = {}
+
+    def run(case):
+        if case not in runs:
+            A, b, G = _cg_qp(case)
+            jp = None if G is None else jproj.Projector.create(
+                jlin.Dense.create(jnp.asarray(G))).apply_p
+            out = io.StringIO()
+            with jdm(True), contextlib.redirect_stdout(out):
+                r = jcg(JQP(A=jlin.Dense.create(jnp.asarray(A)), b=jnp.asarray(b)),
+                        tol=jconv.Tolerances(rtol=1e-10), project=jp, monitor=True, history=50)
+                int(r.iterations)  # the monitor's lines are printed by then
+            runs[case] = (r, out.getvalue())
+        return runs[case]
+
+    return run
+
+
+def _tcg(case, **kw):
+    from permon_tpu_torch.core.detred import deterministic_mode as tdm
+    from permon_tpu_torch.qp.qp import QP as TQP
+    from permon_tpu_torch.solvers.cg import cg as tcg
+
+    A, b, G = _cg_qp(case)
+    tp = None if G is None else tproj.Projector.create(tlin.Dense.create(_t(G))).apply_p
     with tdm(True):
-        rt = tcg(TQP(A=tlin.Dense.create(_t(A)), b=_t(b)), tol=tol, project=tp, history=50)
+        return tcg(TQP(A=tlin.Dense.create(_t(A)), b=_t(b)), tol=tconv.Tolerances(rtol=1e-10),
+                   project=tp, **kw)
+
+
+@pytest.mark.parametrize("case", ["spd_projected", "breakdown"])
+def test_cg_matches_jax(case, jax_cg):
+    """Same iteration count and reason as the JAX cg on a small dense QP
+    (deterministic reductions); x within 1e-12, the residual history within
+    1e-9 relative / 1e-12 of ||P r0||."""
+    rj, _ = jax_cg(case)
+    rt = _tcg(case, history=50)
     assert (rt.iterations, rt.reason) == (int(rj.iterations), int(rj.reason))
     np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=0, atol=1e-12)
     hj = np.asarray(rj.rnorm_history)
     np.testing.assert_allclose(rt.rnorm_history.numpy(), hj, rtol=1e-9,
                                atol=1e-12 * hj[0], equal_nan=True)
+
+
+_MONITOR = __import__("re").compile(r"^ *(\d+) CG \|\|Pr\|\|=(\S+)$")
+
+
+def _monitor_lines(text):
+    return [(int(m.group(1)), float(m.group(2)))
+            for m in map(_MONITOR.match, text.splitlines()) if m]
+
+
+@pytest.mark.parametrize("case", ["spd_projected", "breakdown", "pcpg"])
+def test_cg_monitor_matches_jax(case, jax_cg, capfd):
+    """``cg(monitor=True)`` / ``pcpg(monitor=True)`` print the JAX package's
+    line ``{it:>3} CG ||Pr||={rnorm:.10e}`` once per convergence test: as
+    many lines, the same iteration numbers, the norms within
+    ``test_cg_matches_jax``'s 1e-9 relative / 1e-12 of ||P r0|| (the JAX
+    cg on its QPs, deterministic reductions; pcpg with BE = G is the
+    projected case), and the iterate bitwise equal to that of
+    ``monitor=False``."""
+    rj, text = jax_cg("spd_projected" if case == "pcpg" else case)
+    its_j, jlines = int(rj.iterations), _monitor_lines(text)
+    if case == "pcpg":
+        from permon_tpu_torch.core.detred import deterministic_mode as tdm
+        from permon_tpu_torch.qp.qp import QP as TQP
+        from permon_tpu_torch.solvers.cg import pcpg as tpcpg
+
+        A, b, G = _cg_qp("spd_projected")
+
+        def port(monitor):
+            with tdm(True):
+                return tpcpg(TQP.create(A, b, BE=G, device="cpu"),
+                             tol=tconv.Tolerances(rtol=1e-10), monitor=monitor)
+    else:
+        def port(monitor):
+            return _tcg(case, monitor=monitor)
+
+    capfd.readouterr()
+    rt = port(True)
+    tlines = _monitor_lines(capfd.readouterr().out)
+    quiet = port(False)
+    assert capfd.readouterr().out == ""
+    assert rt.iterations == its_j
+    assert len(tlines) == len(jlines) == its_j + (case != "breakdown")
+    assert [i for i, _ in tlines] == [i for i, _ in jlines] == list(range(len(jlines)))
+    rj_ = np.array([r for _, r in jlines])
+    np.testing.assert_allclose([r for _, r in tlines], rj_, rtol=1e-9, atol=1e-12 * rj_[0])
+    assert (rt.iterations, rt.reason) == (quiet.iterations, quiet.reason)
+    assert torch.equal(rt.x, quiet.x)

@@ -1,12 +1,17 @@
-"""The user-side modules of permon_tpu_torch — ``sys.options``,
-``sys.tracing`` with ``Timer``, the debug self-checks, ``viewers``,
-``utils.checkpoint`` with ``FetiSolver.save``, ``svm`` — against the JAX
-package on the CPU (the oracles of tests/test_components.py::TestSys,
+"""The public names of permon_tpu_torch (the JAX package's ``__all__`` and
+subpackage exports, the examples' helpers) and the user-side modules —
+``sys.options``, ``sys.tracing`` with ``Timer``, the debug self-checks,
+``viewers``, ``utils.checkpoint`` with ``FetiSolver.save``, ``svm`` —
+against the JAX package on the CPU (the oracles of tests/test_components.py::TestSys,
 tests/test_debug_checks.py, tests/test_output_diff.py::TestResidualHistory
 and tests/test_svm.py).
 
 Tolerances, per check:
 
+- names: every public name of the JAX package's namespace and of its five
+  re-exporting subpackages is in the port's, of the same kind; the
+  examples' helpers equal; ``__graft_entry__``'s recipe through the names:
+  equal iterations, x and the projected-gradient norm to 1e-9;
 - options: the same parsed values, the same solve counts as the JAX
   package's solve_from_options on the same QP, the same FetiOptions;
 - Timer: the operator's applications counted exactly (the JAX package
@@ -112,6 +117,82 @@ def test_not_ported_options_still_raise():
     plain = feti_solve(prob, FetiOptions(), device="cpu")
     assert res.result.iterations == plain.result.iterations
     np.testing.assert_array_equal(res.x_global, plain.x_global)
+
+
+# -- the JAX package's public names ---------------------------------------------
+
+
+def _kind(obj):
+    import inspect
+
+    if inspect.ismodule(obj):
+        return "module"
+    if inspect.isclass(obj):
+        return "class"
+    return "function" if callable(obj) else type(obj).__name__
+
+
+@pytest.mark.parametrize("sub", ["", "solvers", "qp", "qpc", "pc", "core"])
+def test_public_names_match_jax(sub):
+    """Every public name of the JAX package's namespace (``__all__``; all
+    but ``enable_compilation_cache``, which configures JAX's compilation
+    cache) and of its five subpackages that re-export names is a name of
+    the port's counterpart, of the same kind (class, function or module)."""
+    import importlib
+
+    jmod = importlib.import_module("permon_tpu" + (f".{sub}" if sub else ""))
+    tmod = importlib.import_module("permon_tpu_torch" + (f".{sub}" if sub else ""))
+    if sub:
+        names = sorted(n for n in vars(jmod) if not n.startswith("_")
+                       and not (_kind(getattr(jmod, n)) == "module"
+                                and getattr(jmod, n).__name__.startswith(f"permon_tpu.{sub}.")
+                                and n not in ("convergence", "eig", "linop")))
+    else:
+        names = sorted(set(jmod.__all__) - {"enable_compilation_cache"})
+        assert set(names) <= set(tmod.__all__)
+    assert names, sub
+    kinds = {n: (_kind(getattr(tmod, n, None)), _kind(getattr(jmod, n))) for n in names}
+    assert all(t == j for t, j in kinds.values()), kinds
+    if sub == "solvers":
+        assert tmod.mprgp is tpt.mprgp and tmod.solve is tpt.solve
+
+
+def test_graft_entry_recipe_through_the_names():
+    """``__graft_entry__.entry``'s recipe written against the package
+    names (``Dia``, ``QP``, ``mprgp``, ``Tolerances``) runs unchanged on the
+    port: the same iterations as the JAX package (the 200 of the cap), x
+    and the projected-gradient norm to 1e-9 (200 iterations, not converged)."""
+    n = 1024
+    A, b, lb = tprob.build_ex1(n)
+    out = {}
+    for pkg, kw in ((jpt, {}), (tpt, dict(device="cpu"))):
+        op = pkg.Dia.from_scipy(sp.csr_matrix(A), **kw)
+        res = pkg.mprgp(pkg.QP.create(op, b, lb=lb, **kw), tol=pkg.Tolerances(max_it=200))
+        out[pkg.__name__] = (int(res.iterations), np.asarray(res.x), float(res.rnorm))
+    (ij, xj, rj), (it, xt, rt) = out["permon_tpu"], out["permon_tpu_torch"]
+    assert it == ij
+    np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(rt, rj, rtol=0, atol=1e-9)
+
+
+def test_example_helpers_match_jax():
+    """The JAX examples' helpers under their module paths:
+    ``examples.ex2.fobst`` (the formula ``build_ex2`` uses) and
+    ``examples.feti_ex71.q1_poisson_emat`` / ``q1_elasticity_emat``, equal
+    to the JAX ones."""
+    import examples.ex2 as jex2
+    from permon_tpu_torch.examples import ex2, feti_ex71
+
+    n = 100
+    got = np.array([ex2.fobst(i, n) for i in range(n)])
+    np.testing.assert_array_equal(got, [jex2.fobst(i, n) for i in range(n)])
+    np.testing.assert_array_equal(ex2.fobst(np.arange(n), n), got)
+    lb = ex2.build(n)[2]
+    np.testing.assert_array_equal(lb[1:n // 2], got[1:n // 2])
+    for dim in (1, 2, 3):
+        np.testing.assert_array_equal(feti_ex71.q1_poisson_emat(dim), jex71.q1_poisson_emat(dim))
+        np.testing.assert_array_equal(feti_ex71.q1_elasticity_emat(dim, 2.0, 0.5),
+                                      jex71.q1_elasticity_emat(dim, 2.0, 0.5))
 
 
 # -- tracing and Timer ---------------------------------------------------------
