@@ -213,8 +213,10 @@ class Ell(LinearOperator):
     def from_arrays(cls, cols, vals, shape, device=None) -> "Ell":
         """Build from host ELL arrays (the JAX package's layout)."""
         dev = resolve_device(device)
-        cols = np.asarray(cols, dtype=np.int64)
-        vals = np.asarray(vals)
+        # writable: torch.as_tensor shares a numpy array's memory, and a
+        # read-only one (a JAX array's host view) draws its warning
+        cols = np.require(cols, np.int64, "W")
+        vals = np.require(vals, requirements="W")
         m, n = int(shape[0]), int(shape[1])
         kk = cols.shape[1]
         flat_c = cols.reshape(-1)

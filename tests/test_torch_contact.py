@@ -1,6 +1,5 @@
-"""permon_tpu_torch contact on the large path, Dirichlet handling and the
-lumped dual preconditioner against the JAX package on the same inputs, with
-the tolerance stated per check:
+"""permon_tpu_torch contact on the large path and Dirichlet handling against
+the JAX package on the same inputs, with the tolerance stated per check:
 
 - host setup (build_obstacle, build_contact, build_dirichlet_rows in both
   search regimes of the JAX package, eliminate_dirichlet_in_sparse_blocks):
@@ -17,8 +16,10 @@ the tolerance stated per check:
   of the JAX package's, both within 5e-3 of the projected solution and
   the KKT residual of the assembled box QP under 5e-4 ||b||;
 - solver reuse with contact, Dirichlet in the Hessian (by-B agreement 1e-7,
-  boundary values 1e-8..1e-10, new rhs, primal_refine), lumped
-  preconditioner (eager = fast counts, counts equal to the JAX package's).
+  boundary values 1e-8..1e-10, new rhs, primal_refine); the lumped
+  preconditioner is ignored for contact.  The lumped preconditioner on the
+  linear 12^3 problem is tests/test_torch_feti_large.py's, beside the JAX
+  solves of that problem it shares programs with.
 """
 
 import dataclasses
@@ -488,39 +489,12 @@ def test_primal_refine_with_dirichlet(by_B):
                                atol=1e-6 if by_B else 1e-8)
 
 
-# -- the lumped dual preconditioner ------------------------------------------------
+# -- the linear problem of the rejections ------------------------------------------
 
 
 @pytest.fixture(scope="module")
 def linear_prob():
     return build_sparse((12,) * 3, (2,) * 3)
-
-
-def test_lumped_counts_equal_jax(linear_prob):
-    jopts = JaxFetiOptions(gluing="nonred", pc_dual="lumped", deterministic=True)
-    ref = jlarge.feti_solve_sparse(_jax_sparse(linear_prob), jopts, tol=JaxTolerances(rtol=1e-5))
-    res_n = feti_solve_sparse(linear_prob, FetiOptions(gluing="nonred", deterministic=True),
-                              tol=Tolerances(rtol=1e-5), device="cpu")
-    res_l = feti_solve_sparse(linear_prob, FetiOptions(gluing="nonred", pc_dual="lumped",
-                                                       deterministic=True),
-                              tol=Tolerances(rtol=1e-5), device="cpu")
-    assert res_l.result.reason == 2
-    assert res_l.result.iterations == int(ref.result.iterations)
-    assert res_l.result.iterations != res_n.result.iterations
-    np.testing.assert_allclose(res_l.x_global, ref.x_global, rtol=0, atol=1e-6)
-    np.testing.assert_allclose(res_l.x_global, res_n.x_global, rtol=0, atol=1e-3)
-
-
-@pytest.mark.parametrize("coarse", ["auto", "sparse"])
-def test_lumped_eager_and_fast_counts_equal(linear_prob, coarse):
-    solver = FetiSolverSparse(linear_prob, FetiOptions(gluing="nonred", pc_dual="lumped",
-                                                       coarse=coarse), device="cpu")
-    r1 = solver.solve(tol=Tolerances(rtol=1e-6))
-    assert (r1.dual_qp is None) == (coarse == "sparse")  # eager first solve on 'auto'
-    r2 = solver.solve(b_loc=linear_prob.b_loc * 2.0, tol=Tolerances(rtol=1e-6))
-    assert r2.dual_qp is None and r2.result.reason == 2  # the fast path
-    assert r1.result.iterations == r2.result.iterations
-    np.testing.assert_allclose(r2.x_global, 2.0 * r1.x_global, rtol=0, atol=1e-6)
 
 
 # -- what raises ---------------------------------------------------------------

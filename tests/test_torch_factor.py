@@ -3,7 +3,8 @@
 the same numpy-seeded factors through both packages, the generalized
 inverse identities, the ``kplus_mode`` compositions, and the tutorial ex3
 (the obstacle as an inequality, dualized with a dense K+) at its pinned
-counts, with and without the empty nullspace."""
+counts, with and without the empty nullspace; the ex3 example's main
+against the JAX package's (tests/torch_example_parity.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +22,8 @@ from permon_tpu_torch.interop import from_arrays
 from permon_tpu_torch.problems import build_ex1, build_ex3
 from permon_tpu_torch.qp.transforms import (Solution, compose, dualize,
                                             enforce_eq_by_projector, homogenize_eq)
+
+from torch_example_parity import check_example
 
 torch.set_num_threads(2)
 
@@ -315,3 +318,14 @@ def test_dualize_kplus_modes(mode):
     np.testing.assert_allclose(Kp.mv(v).numpy(), jKp_v, atol=1e-10)
     with pytest.raises(ValueError, match="kplus_mode"):
         dualize(qp, kplus_mode="right")
+
+
+# -- the command-line example of this path --------------------------------------
+
+
+@pytest.mark.parametrize("name", ["ex3"])
+def test_example_matches_jax_example(name):
+    """The example's main against the JAX package's, in-process: every
+    printed line with the numbers masked, and the solution
+    (tests/torch_example_parity.py)."""
+    check_example(name)

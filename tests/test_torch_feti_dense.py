@@ -14,11 +14,19 @@ Tolerances, per check:
 - against direct solves of the assembled system: the JAX package's own
   limits (ex1 1e-10, 2-D 1e-4 at the default rtol, 1-D 1e-10, ragged 1e-8);
 - contact against the serial MPRGP obstacle solution: 1e-6, 3-20 active
-  nodes, lambda_I >= -1e-10 (tests/test_feti.py::TestContact).
+  nodes, lambda_I >= -1e-10 (tests/test_feti.py::TestContact);
+- ex71 through the MATIS entry (feti_problem_from_matis): the problem
+  array-equal to the FetiProblem entry's and the JAX package's, the count
+  and x_global bitwise those of the FetiProblem entry, x_global to 1e-9 of
+  max |x| of the JAX package's at rtol 1e-10 (one JAX solve per gluing,
+  shared with the ex71 count test);
+- the feti_ex1, feti_contact and feti_ex71 examples' mains against the
+  JAX package's (tests/torch_example_parity.py).
 """
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -26,18 +34,23 @@ import torch
 import examples.feti_contact as jcontact
 import examples.feti_ex1 as jex1
 import examples.feti_ex71 as jex71
+import permon_tpu.feti.matis as jmatis
 import permon_tpu.feti.solve as jsolve
 from permon_tpu.core.convergence import Tolerances as JaxTolerances
 from permon_tpu.feti.solve import FetiOptions as JaxFetiOptions
 
 import permon_tpu_torch as pt
+import permon_tpu_torch.feti.matis as tmatis
 import permon_tpu_torch.feti.solve as tsolve
 import permon_tpu_torch.problems as tprob
 from permon_tpu_torch.core.convergence import Tolerances
 from permon_tpu_torch.core.factor import BlockDiagCholInv, RaggedBlockDiagCholInv
 from permon_tpu_torch.feti.assembly import FetiProblem, decompose_rhs_by_multiplicity
 from permon_tpu_torch.feti.solve import FetiOptions, FetiSolver, feti_solve
+from permon_tpu_torch.interop import from_arrays
 from permon_tpu_torch.qp.transforms import Solution, all_in_one
+
+from torch_example_parity import check_example
 
 torch.set_num_threads(2)
 
@@ -120,14 +133,28 @@ def ex71():
     return tprob.build_ex71(), jex71.build()
 
 
+@pytest.fixture(scope="module")
+def jax_ex71_tight(ex71):
+    """The JAX package's ex71 solve at rtol 1e-10, run once per gluing for
+    the count test and the MATIS test."""
+    runs = {}
+
+    def run(gluing):
+        if gluing not in runs:
+            runs[gluing] = _jsolve(ex71[1], TIGHT, gluing=gluing)
+        return runs[gluing]
+
+    return run
+
+
 @pytest.mark.parametrize("gluing,ref_its", [("nonred", 16), ("full", 9), ("orth", 9)])
-def test_ex71_poisson_counts(ex71, gluing, ref_its):
+def test_ex71_poisson_counts(ex71, jax_ex71_tight, gluing, ref_its):
     """Oracles ex71_1_feti_gluing_type-{nonred,full,orth}.out: 16 / 9 / 9;
     at rtol 1e-10 the count and the solution equal the JAX package's."""
-    prob, jprob = ex71
+    prob, _ = ex71
     res = _solve(prob, gluing=gluing)
     assert res.result.reason == 2 and res.result.iterations == ref_its
-    tight, ref = _solve(prob, TIGHT, gluing=gluing), _jsolve(jprob, TIGHT, gluing=gluing)
+    tight, ref = _solve(prob, TIGHT, gluing=gluing), jax_ex71_tight(gluing)
     assert tight.result.iterations == int(ref.result.iterations)
     np.testing.assert_allclose(tight.x_global, ref.x_global, rtol=0,
                                atol=1e-9 * np.abs(ref.x_global).max())
@@ -145,6 +172,43 @@ def test_lumped_preconditioner_helps():
     assert r_lump.result.iterations == int(j_lump.result.iterations)
     np.testing.assert_allclose(r_lump.x_global, j_lump.x_global, rtol=0,
                                atol=1e-9 * np.abs(j_lump.x_global).max())
+
+
+def _same_problem(prob, jprob):
+    for f in dataclasses.fields(jprob):
+        a, b = getattr(prob, f.name), getattr(jprob, f.name)
+        if a is None or b is None or isinstance(a, str):
+            assert a == b
+            continue
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f.name
+
+
+@pytest.mark.parametrize("gluing", ["nonred", "full"])
+def test_ex71_through_matis_matches_problem_entry_and_jax(ex71, jax_ex71_tight, gluing):
+    """ex71 as the reference builds it: the MATIS operator of the blocks ->
+    feti_problem_from_matis -> feti_solve.  The problem equals the one of
+    the FetiProblem entry (build_ex71) and the JAX package's; the solve
+    equals both (the JAX package's solve of that same problem is the count
+    test's)."""
+    prob = tprob.build_ex71()
+    A = tmatis.MatIS.create(prob.K_blocks, prob.l2g, device="cpu")
+    mprob, _, _ = tmatis.feti_problem_from_matis(A, np.ones(prob.n_global), coords=prob.coords)
+    _same_problem(mprob, prob)
+    jA = jmatis.MatIS.create(jnp.asarray(prob.K_blocks), jnp.asarray(prob.l2g))
+    jprob, _, _ = jmatis.feti_problem_from_matis(jA, np.ones(prob.n_global), coords=prob.coords)
+    _same_problem(mprob, jprob)
+    _same_problem(from_arrays(jprob, "cpu"), jprob)
+    _same_problem(jprob, ex71[1])  # the input of the shared JAX solve
+    tol = dict(rtol=1e-10)
+    got = feti_solve(mprob, FetiOptions(gluing=gluing), tol=Tolerances(**tol), device="cpu")
+    direct = feti_solve(prob, FetiOptions(gluing=gluing), tol=Tolerances(**tol), device="cpu")
+    assert got.result.iterations == direct.result.iterations
+    np.testing.assert_array_equal(got.x_global, direct.x_global)
+    ref = jax_ex71_tight(gluing)
+    assert got.result.iterations == int(ref.result.iterations)
+    np.testing.assert_allclose(got.x_global, ref.x_global, rtol=0,
+                               atol=1e-9 * np.abs(ref.x_global).max())
 
 
 @pytest.mark.parametrize("case", ["2d", "1d"])
@@ -323,3 +387,14 @@ def test_contact_through_feti_solve(contact_ref):
     child, sm, sls = tsolve.prepare_contact_children(prob, FetiOptions(gluing="nonred"),
                                                      BI, cI, device="cpu")
     assert sls is None and child.box is not None and dataclasses.is_dataclass(sm)
+
+
+# -- the command-line example of this path --------------------------------------
+
+
+@pytest.mark.parametrize("name", ["feti_ex1", "feti_contact", "feti_ex71"])
+def test_example_matches_jax_example(name):
+    """The example's main against the JAX package's, in-process: every
+    printed line with the numbers masked, and the solution
+    (tests/torch_example_parity.py)."""
+    check_example(name)

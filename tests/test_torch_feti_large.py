@@ -7,8 +7,13 @@
   assembled residual < 1e-8;
 - FetiSolverSparse(coarse='sparse') runs the on-device fast path; a
   re-solve with 1.5 b agrees with a fresh solve to 1e-7;
+- the lumped dual preconditioner: the count equal to the JAX package's
+  and unlike the unpreconditioned one, x_global to 1e-6 of the JAX
+  package's at rtol 1e-5; the eager and the fast path give equal counts;
 - the 64-subdomain twin of the north star converges in 23 iterations
-  (as tests/test_large.py::TestNorthStarShape pins for the JAX package).
+  (as tests/test_large.py::TestNorthStarShape pins for the JAX package);
+- the feti_large example's main against the JAX package's, with f64
+  factors and with its f32 recipe (tests/torch_example_parity.py).
 """
 
 import dataclasses
@@ -19,6 +24,7 @@ import torch
 
 import examples.feti_large as jfl
 from permon_tpu.core.convergence import Tolerances as JaxTolerances
+from permon_tpu.feti.large import SparseFetiProblem as JaxSparseFetiProblem
 from permon_tpu.feti.large import feti_solve_sparse as jax_feti_solve_sparse
 from permon_tpu.feti.solve import FetiOptions as JaxFetiOptions
 
@@ -27,6 +33,8 @@ from permon_tpu_torch.core.sell import gather_apply
 from permon_tpu_torch.feti.large import FetiSolverSparse, feti_solve_sparse
 from permon_tpu_torch.feti.solve import FetiOptions
 from permon_tpu_torch.problems import assembled_system, build_sparse
+
+from torch_example_parity import check_example
 
 torch.set_num_threads(2)
 
@@ -170,3 +178,51 @@ def test_explicit_cuda_device_never_falls_back():
     with pytest.raises(RuntimeError, match="CUDA"):
         FetiSolverSparse(build_sparse((4,) * 3, (2,) * 3), FetiOptions(gluing="nonred"),
                          device="cuda")
+
+
+# -- the lumped dual preconditioner ------------------------------------------------
+
+
+def _jax_sparse(prob):
+    """The JAX package's container over the same host arrays."""
+    return JaxSparseFetiProblem(
+        K_blocks=prob.K_blocks, b_loc=prob.b_loc, l2g=prob.l2g, floating=prob.floating,
+        dirichlet=prob.dirichlet, dirichlet_values=prob.dirichlet_values)
+
+
+def test_lumped_counts_equal_jax(prob):
+    jopts = JaxFetiOptions(gluing="nonred", pc_dual="lumped", deterministic=True)
+    ref = jax_feti_solve_sparse(_jax_sparse(prob), jopts, tol=JaxTolerances(rtol=1e-5))
+    res_n = feti_solve_sparse(prob, FetiOptions(gluing="nonred", deterministic=True),
+                              tol=Tolerances(rtol=1e-5), device="cpu")
+    res_l = feti_solve_sparse(prob, FetiOptions(gluing="nonred", pc_dual="lumped",
+                                                deterministic=True),
+                              tol=Tolerances(rtol=1e-5), device="cpu")
+    assert res_l.result.reason == 2
+    assert res_l.result.iterations == int(ref.result.iterations)
+    assert res_l.result.iterations != res_n.result.iterations
+    np.testing.assert_allclose(res_l.x_global, ref.x_global, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(res_l.x_global, res_n.x_global, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("coarse", ["auto", "sparse"])
+def test_lumped_eager_and_fast_counts_equal(prob, coarse):
+    solver = FetiSolverSparse(prob, FetiOptions(gluing="nonred", pc_dual="lumped",
+                                                coarse=coarse), device="cpu")
+    r1 = solver.solve(tol=Tolerances(rtol=1e-6))
+    assert (r1.dual_qp is None) == (coarse == "sparse")  # eager first solve on 'auto'
+    r2 = solver.solve(b_loc=prob.b_loc * 2.0, tol=Tolerances(rtol=1e-6))
+    assert r2.dual_qp is None and r2.result.reason == 2  # the fast path
+    assert r1.result.iterations == r2.result.iterations
+    np.testing.assert_allclose(r2.x_global, 2.0 * r1.x_global, rtol=0, atol=1e-6)
+
+
+# -- the command-line example of this path --------------------------------------
+
+
+@pytest.mark.parametrize("name", ["feti_large", "feti_large-f32"])
+def test_example_matches_jax_example(name):
+    """The example's main against the JAX package's, in-process: every
+    printed line with the numbers masked, and the solution
+    (tests/torch_example_parity.py)."""
+    check_example(name)

@@ -12,10 +12,11 @@ Tolerances, per check:
 - the operators' mv / rmv / todense against the JAX package's on the same
   arrays: 1e-14 (the gather tables add each row's entries in the JAX
   package's entry order); MatIS against the assembled matrix: 1e-13;
-- feti_problem_from_matis -> feti_solve: the problem array-equal to the
-  JAX package's, counts equal, x_global to 1e-9 of max |x| at rtol 1e-10;
-  through the FetiProblem entry (build_ex71) the count and x_global are
-  the same bitwise; the direct solve of tests/test_matis.py to 1e-8.
+- feti_problem_from_matis -> feti_solve: the direct solve of
+  tests/test_matis.py to 1e-8.  ex71 through the MATIS entry against the
+  FetiProblem entry and the JAX package's solve is
+  tests/test_torch_feti_dense.py::test_ex71_through_matis_matches_problem_entry_and_jax,
+  beside the JAX solve of the same problem it shares.
 """
 
 import dataclasses
@@ -31,15 +32,11 @@ import examples.feti_ex71 as jex71
 import permon_tpu.core.blockdiag as jbd
 import permon_tpu.core.gluing as jgl
 import permon_tpu.feti.matis as jmatis
-import permon_tpu.feti.solve as jsolve
-from permon_tpu.core.convergence import Tolerances as JaxTolerances
 from permon_tpu.core.extension import SubdomainExtension as JaxExtension
-from permon_tpu.feti.solve import FetiOptions as JaxFetiOptions
 
 import permon_tpu_torch.feti.matis as tmatis
 import permon_tpu_torch.problems as tprob
 from permon_tpu_torch.core.blockdiag import BlockColumns, BlockDiagDense
-from permon_tpu_torch.core.convergence import Tolerances
 from permon_tpu_torch.core.extension import SubdomainExtension
 from permon_tpu_torch.core.gluing import Gluing
 from permon_tpu_torch.feti.assembly import build_gluing
@@ -255,28 +252,3 @@ def test_decomposed_solve_matches_global():
     np.testing.assert_allclose(post(Solution(x=res.u_decomposed)).x.numpy(), res.x_global,
                                rtol=0, atol=1e-12)
     np.testing.assert_allclose(res.x_global, np.linalg.solve(A.todense().numpy(), b), atol=1e-8)
-
-
-@pytest.mark.parametrize("gluing", ["nonred", "full"])
-def test_ex71_through_matis_matches_problem_entry_and_jax(gluing):
-    """ex71 as the reference builds it: the MATIS operator of the blocks ->
-    feti_problem_from_matis -> feti_solve.  The problem equals the one of
-    the FetiProblem entry (build_ex71) and the JAX package's; the solve
-    equals both."""
-    prob = tprob.build_ex71()
-    A = tmatis.MatIS.create(prob.K_blocks, prob.l2g, device="cpu")
-    mprob, _, _ = tmatis.feti_problem_from_matis(A, np.ones(prob.n_global), coords=prob.coords)
-    _same_problem(mprob, prob)
-    jA = jmatis.MatIS.create(jnp.asarray(prob.K_blocks), jnp.asarray(prob.l2g))
-    jprob, _, _ = jmatis.feti_problem_from_matis(jA, np.ones(prob.n_global), coords=prob.coords)
-    _same_problem(mprob, jprob)
-    _same_problem(from_arrays(jprob, "cpu"), jprob)
-    tol = dict(rtol=1e-10)
-    got = feti_solve(mprob, FetiOptions(gluing=gluing), tol=Tolerances(**tol), device="cpu")
-    direct = feti_solve(prob, FetiOptions(gluing=gluing), tol=Tolerances(**tol), device="cpu")
-    assert got.result.iterations == direct.result.iterations
-    np.testing.assert_array_equal(got.x_global, direct.x_global)
-    ref = jsolve.feti_solve(jprob, JaxFetiOptions(gluing=gluing), tol=JaxTolerances(**tol))
-    assert got.result.iterations == int(ref.result.iterations)
-    np.testing.assert_allclose(got.x_global, ref.x_global, rtol=0,
-                               atol=1e-9 * np.abs(ref.x_global).max())

@@ -2,7 +2,8 @@
 against the JAX package on the CPU: box operations equal on seeded numpy
 inputs (f64 and f32), lambda_max to 1e-12 relative, the pinned MPRGP counts
 of the tutorials held EXACTLY (tests/test_mprgp_ex1.py, tests/test_jbearing.py)
-and the iterates against the JAX solve."""
+and the iterates against the JAX solve; the ex1, ex2 and jbearing2
+examples' mains against the JAX package's (tests/torch_example_parity.py)."""
 
 import contextlib
 import io
@@ -24,6 +25,8 @@ from permon_tpu_torch.problems import build_ex1, build_ex2, build_jbearing
 from permon_tpu_torch.qpc.box import BoxConstraint
 from permon_tpu_torch.solvers.driver import default_solver_type
 from permon_tpu_torch.solvers.mprgp import MPRGPOptions, mprgp
+
+from torch_example_parity import check_example
 
 torch.set_num_threads(2)
 
@@ -339,3 +342,14 @@ def test_unbounded_qp_runs_as_cg_and_solver_selection_rules():
         tpt.solve(boxed, qps_type="smalxe")
     with pytest.raises(ValueError, match="unknown solver"):
         tpt.solve(boxed, qps_type="nope")
+
+
+# -- the command-line example of this path --------------------------------------
+
+
+@pytest.mark.parametrize("name", ["ex1", "ex2", "jbearing2"])
+def test_example_matches_jax_example(name):
+    """The example's main against the JAX package's, in-process: every
+    printed line with the numbers masked, and the solution
+    (tests/torch_example_parity.py)."""
+    check_example(name)

@@ -4,7 +4,9 @@ the same inputs (numpy seeds), with the tolerance stated per check:
 - fixed-tree reductions (``det_sum(x, axis=)`` under the JAX package's
   keyword), DenseTree, BlockDia, RegularizedBlockDia (``mv`` and
   ``diagonal``): bitwise in f64 (same elementwise adds in the same order);
-- Ell.from_coo: the slots bitwise, the products to 1e-14;
+- Ell.from_coo: the slots bitwise, the products to 1e-14; an Ell built
+  from read-only arrays: no warning, no view of them, products bitwise
+  those of the Ell built from writable copies;
 - factor_from_dia_sm: f64 rtol 1e-12, f32 rtol 1e-4 (LAPACK Cholesky and
   triangular inverse of two libraries); BandCholInv.mv fed the SAME factor
   arrays: rtol 1e-13; K Kreg^-1 K = K to 1e-10;
@@ -168,6 +170,31 @@ def test_ell_from_coo():
                                rtol=1e-14, atol=1e-14)
     np.testing.assert_allclose(E.rmv(_t(y)).numpy(), np.asarray(J.rmv(jnp.asarray(y))),
                                rtol=1e-14, atol=1e-14)
+
+
+def test_ell_from_read_only_arrays():
+    """An ``Ell`` built from read-only host arrays (a JAX ``Ell``'s, as
+    interop hands them over) draws no warning, keeps no view of them, and
+    its products equal those of the same ``Ell`` built from writable copies
+    bitwise."""
+    import warnings
+
+    rng = np.random.RandomState(7)
+    m, n, nnz = 30, 20, 90
+    J = jlin.Ell.from_coo(rng.randint(0, m, nnz), rng.randint(0, n, nnz),
+                          rng.standard_normal(nnz), (m, n))
+    cols, vals = np.asarray(J.cols), np.asarray(J.vals)
+    assert not cols.flags.writeable and not vals.flags.writeable
+    ref = tlin.Ell.from_arrays(cols.copy(), vals.copy(), (m, n), device="cpu")
+    x, y = _t(rng.standard_normal(n)), _t(rng.standard_normal(m))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for E in (tlin.Ell.from_arrays(cols, vals, (m, n), device="cpu"),
+                  from_arrays(J, "cpu")):
+            assert not np.shares_memory(E.cols.numpy(), cols)
+            assert not np.shares_memory(E.vals.numpy(), vals)
+            assert torch.equal(E.mv(x), ref.mv(x)) and torch.equal(E.rmv(y), ref.rmv(y))
+    np.testing.assert_array_equal(cols, np.asarray(J.cols))  # the inputs are untouched
 
 
 @pytest.mark.parametrize("dtype,rtol", [("float64", 1e-12), ("float32", 1e-4)])

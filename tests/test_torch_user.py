@@ -22,7 +22,8 @@ Tolerances, per check:
 - checkpoint: tensors bitwise equal after a round trip; a re-solve of a
   loaded FetiSolver bitwise equal to the live solver's;
 - SVC: alpha to 1e-6 of the JAX package's, equal SMALXE outer / inner
-  counts, equal training scores.
+  counts, equal training scores; the svm example's main against the JAX
+  package's (tests/torch_example_parity.py).
 """
 
 import numpy as np
@@ -46,6 +47,8 @@ from permon_tpu_torch.feti.solve import FetiOptions, FetiSolver, feti_solve
 from permon_tpu_torch.sys import options as toptions
 from permon_tpu_torch.sys import tracing as ttracing
 from permon_tpu_torch.utils import checkpoint
+
+from torch_example_parity import check_example
 
 torch.set_num_threads(2)
 
@@ -476,3 +479,14 @@ def test_svc_against_jax(kernel, data, kw, min_score):
         np.testing.assert_array_equal(_blobs()[0], make_blobs(120, 2, 0, 1.5)[0])
         qp = svm_dual_qp(X[:40], y[:40], C=2.0, device="cpu")
         assert qp.BE.shape == (1, 40) and float(qp.box.ub[0]) == 2.0
+
+
+# -- the command-line example of this path --------------------------------------
+
+
+@pytest.mark.parametrize("name", ["svm"])
+def test_example_matches_jax_example(name):
+    """The example's main against the JAX package's, in-process: every
+    printed line with the numbers masked, and the solution
+    (tests/torch_example_parity.py)."""
+    check_example(name)
