@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import as_torch_dtype, resolve_device
+from ..sys.tracing import trace
 from .linop import LinearOperator
 
 
@@ -463,8 +464,10 @@ class BandCholInv(LinearOperator):
         return self._from_blocks(self._bwd(self._to_blocks(x))).to(x.dtype)
 
     def _solve(self, x):
-        _check_tf32(x.device)
-        return self._from_blocks(self._bwd(self._fwd(self._to_blocks(x))))
+        """One forward and one backward pass: the span ``kplus.solve``."""
+        with trace("kplus.solve"):
+            _check_tf32(x.device)
+            return self._from_blocks(self._bwd(self._fwd(self._to_blocks(x))))
 
     def mv(self, x):
         y = self._solve(x).to(x.dtype)

@@ -444,12 +444,12 @@ class OneRow(LinearOperator):
 @dataclasses.dataclass
 class Timer(LinearOperator):
     """Instrumentation wrapper — the MATTIMER analog (reference:
-    src/mat/impls/timer/mattimer.c).  Each apply runs inside a
-    ``torch.profiler.record_function`` range named ``<name>.mv`` /
-    ``<name>.rmv`` (visible in profiler traces) and bumps the host counter
-    of :mod:`permon_tpu_torch.sys.tracing`.  The JAX package's counters
-    count traces (one per compilation); the port runs eagerly, so they
-    count applications."""
+    src/mat/impls/timer/mattimer.c).  Each apply runs inside a span of
+    :mod:`permon_tpu_torch.sys.tracing` named ``<name>.mv`` /
+    ``<name>.rmv`` (nested under the caller's spans, and a
+    ``record_function`` range while a profiler records) and bumps the host
+    counter ``op_counts``.  The JAX package's counters count traces (one
+    per compilation); the port runs eagerly, so they count applications."""
 
     inner: Any
     name: str = "op"
@@ -459,10 +459,10 @@ class Timer(LinearOperator):
         return self.inner.shape
 
     def _run(self, op: str, x):
-        from ..sys.tracing import count_op
+        from ..sys.tracing import count_op, trace
 
         count_op(self.name, op)
-        with torch.profiler.record_function(f"{self.name}.{op}"):
+        with trace(f"{self.name}.{op}"):
             return getattr(self.inner, op)(x)
 
     def mv(self, x):

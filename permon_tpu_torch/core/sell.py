@@ -79,6 +79,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..sys.tracing import trace
 from .linop import LinearOperator
 
 _CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -376,8 +377,10 @@ def gather_apply(tab, x: torch.Tensor) -> torch.Tensor:
     ``tab`` (see :func:`gather_plan`) and a 1-D float32/float64 ``x`` of
     length ``tab.n_src`` on the table's device.  A table on the CPU (or
     ``tab.kernel=False``) uses :func:`gather_apply_plain`; a table on a CUDA
-    device launches the kernel, once."""
-    return _apply(tab, gather_plan, x)
+    device launches the kernel, once.  Each call is one span
+    ``gather.apply``."""
+    with trace("gather.apply"):
+        return _apply(tab, gather_plan, x)
 
 
 #: kernel launches since the last reset (set to 0 to reset)

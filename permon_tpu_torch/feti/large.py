@@ -57,7 +57,6 @@ for a linear solve and ``throughput`` are rejected in its words.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, List, Optional
 
 import numpy as np
@@ -87,6 +86,7 @@ from ..qp.transforms import (
 )
 from ..solvers.cg import cg
 from ..solvers.smalxe import smalxe
+from ..sys.tracing import trace
 from .assembly import (build_dirichlet_rows, build_gluing, constant_nullspace_columns,
                        decompose_rhs_by_multiplicity, dirichlet_global_ids,
                        nullspace_columns_from_blocks, rigid_body_modes)
@@ -340,20 +340,37 @@ def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(
     :class:`~permon_tpu_torch.core.extension.SubdomainExtension` over the
     UNPADDED (ns, nl) decomposed space; the operator is re-padded to nlp
     here and gets its gather tables.  ``timings`` (optional dict) gets
-    ``host_setup_s`` and ``factor_s``.
+    ``host_setup_s`` and ``factor_s``: the seconds of the synchronised
+    spans ``feti.host_setup`` and ``feti.factor``.
 
     Returns (qp, kplus, NB, elim) — ``elim`` is the :class:`DirichletElim`
     rhs-transform record when dirichlet_by_B=False eliminated Dirichlet
     dofs into the Hessian, else None."""
+    _check_slice(opts, contact=BI is not None)
+    dev = _rank_device(opts, device)
+    with trace("feti.host_setup") as setup:
+        qp, Areg, NB, elim = _host_setup(prob, opts, NB, op_dtype, BI, cI, dev)
+        _sync(dev)
+    with trace("feti.factor") as factor:
+        kplus = BandCholInv.from_blockdia(Areg, NB, dtype=as_torch_dtype(kplus_dtype),
+                                          refine=kplus_refine)
+        _sync(dev)
+    if timings is not None:
+        timings.update(host_setup_s=setup.seconds, factor_s=factor.seconds)
+    return qp, kplus, NB, elim
+
+
+def _host_setup(prob: SparseFetiProblem, opts: FetiOptions, NB: Optional[int], op_dtype,
+                BI, cI, dev: torch.device):
+    """The host set-up of :func:`assemble_qp_sparse`: the decomposed QP on
+    ``dev`` and the regularized stencil that K+ factorizes.  Returns (qp,
+    Areg, NB, elim)."""
     import scipy.sparse as sp
 
-    _check_slice(opts, contact=BI is not None)
     mesh = opts.mesh
-    dev = _rank_device(opts, device)
     # under a mesh every rank builds the whole problem on the host and
     # parallel/dist.py puts its own subdomains on its device
     host = dev if mesh is None else torch.device("cpu")
-    t0 = time.perf_counter()
     ns, nl = prob.ns, prob.nl
     # a block that is CSR already is kept as the object it is: equal blocks
     # are often ONE object (the problem generators cache them by box shape), and the
@@ -448,14 +465,7 @@ def assemble_qp_sparse(prob: SparseFetiProblem, opts: FetiOptions = FetiOptions(
         Areg = shard_blockdia(Areg, *mesh.subdomains(ns), base=qp.A)
     qp = qp.replace(BE=_device_extension(qp.BE, opts, dev),
                     BI=None if qp.BI is None else _device_extension(qp.BI, opts, dev))
-    _sync(dev)
-    t1 = time.perf_counter()
-    kplus = BandCholInv.from_blockdia(Areg, NB, dtype=as_torch_dtype(kplus_dtype),
-                                      refine=kplus_refine)
-    _sync(dev)
-    if timings is not None:
-        timings.update(host_setup_s=t1 - t0, factor_s=time.perf_counter() - t1)
-    return qp, kplus, NB, elim
+    return qp, Areg, NB, elim
 
 
 def _rank_device(opts: FetiOptions, device) -> torch.device:
@@ -502,23 +512,39 @@ def _solve_prepared(qp, kplus, opts: FetiOptions, tol: Tolerances,
     box (contact); folded back to the decomposed solution.  ``kplus_post``
     (the refined K+) serves only the post-solve chain, where f32 noise
     would be amplified by ||K+||; the dual solver keeps the cheap unrefined
-    applies (feti/large.py:464-574)."""
+    applies (feti/large.py:464-574).  Spans: ``feti.dual_solve`` around the
+    call, ``feti.dualize`` (d, e, lambda0 and the projected dual),
+    ``feti.post`` (the post chain)."""
+    with trace("feti.dual_solve"):
+        return _dual_solve(qp, kplus, opts, tol, kplus_post, pf)
+
+
+def _dual_solve(qp, kplus, opts: FetiOptions, tol: Tolerances, kplus_post, pf):
     steps = []
-    dual, post_d = dualize(qp, kplus=kplus, coarse=opts.coarse, pf=pf)
-    if kplus_post is not None:
-        dual_a, post_d = dualize(qp, kplus=kplus_post, coarse=opts.coarse, pf=dual.pf)
-    else:
-        dual_a = dual
-    steps.append((dual_a, post_d))
-    cur, cur_a = dual, dual_a
-    if cur.cE is not None:
-        cur, _ = homogenize_eq(cur)
-        cur_a, post_h = homogenize_eq(cur_a)
-        steps.append((cur_a, post_h))
+    pf_holder = None
+    with trace("feti.dualize"):
+        dual, post_d = dualize(qp, kplus=kplus, coarse=opts.coarse, pf=pf)
+        if kplus_post is not None:
+            dual_a, post_d = dualize(qp, kplus=kplus_post, coarse=opts.coarse, pf=dual.pf)
+        else:
+            dual_a = dual
+        steps.append((dual_a, post_d))
+        cur, cur_a = dual, dual_a
+        if cur.cE is not None:
+            cur, _ = homogenize_eq(cur)
+            cur_a, post_h = homogenize_eq(cur_a)
+            steps.append((cur_a, post_h))
+        if opts.project and cur.BE is not None:
+            pf_holder = cur
+            cur, _ = enforce_eq_by_projector(cur)
+            _, post_p = enforce_eq_by_projector(cur_a)
+            steps.append((cur, post_p))
 
     def solve_contact(q):
         res = smalxe(q, opts=opts.smalxe, tol=tol)
-        return compose(steps)(Solution(x=res.x, Bt_lambda=res.Bt_lambda)), res, dual
+        with trace("feti.post"):
+            sol = compose(steps)(Solution(x=res.x, Bt_lambda=res.Bt_lambda))
+        return sol, res, dual
 
     if not opts.project:
         # SMALBE proper (contact; _check_slice rejects the linear case): no
@@ -536,13 +562,9 @@ def _solve_prepared(qp, kplus, opts: FetiOptions, tol: Tolerances,
         tracing.info("pc_dual='lumped' ignored for contact: the MPRGP inner "
                      "solver runs unpreconditioned (qps/impls/mpgp)")
 
-    if cur.BE is None:
+    if pf_holder is None:
         res = cg(cur, tol=tol, precond=pc)
     else:
-        pf_holder = cur
-        cur, _ = enforce_eq_by_projector(cur)
-        _, post_p = enforce_eq_by_projector(cur_a)
-        steps.append((cur, post_p))
         if cur.box is not None:
             # contact: the box survives into the projected dual — SMALXE
             # (SMALBE) outer loop with MPRGP inner, the reference's
@@ -552,7 +574,8 @@ def _solve_prepared(qp, kplus, opts: FetiOptions, tol: Tolerances,
             return solve_contact(cur)
         # FULL reprojection, w = P r every iteration (pcpg.c:51-134)
         res = cg(cur, tol=tol, precond=pc, project=pf_holder.pf.apply_p)
-    sol = compose(steps)(Solution(x=res.x))
+    with trace("feti.post"):
+        sol = compose(steps)(Solution(x=res.x))
     return sol, res, dual
 
 
@@ -860,7 +883,9 @@ def make_fast_solve_fn(opts: FetiOptions, tol: Tolerances, nref: int, ng: int):
     fixed-order ``ReassemblyTables.copies`` gather table, so the result is
     deterministic on CUDA (the JAX package's scatter-add would use
     atomics there).  Returns ``run(qp, kplus, kplus_post, pf, b, tables)
-    -> (x_global, x_dec, results)``."""
+    -> (x_global, x_dec, results)``.  Spans: ``feti.reassembly`` (each copy
+    sum over the multiplicities), ``feti.defect`` (each f64 defect
+    residual)."""
 
     def run(qp, kplus, kplus_post, pf, b, tables: ReassemblyTables):
         real, l2g_c = tables.real, tables.l2g_c
@@ -873,7 +898,8 @@ def make_fast_solve_fn(opts: FetiOptions, tol: Tolerances, nref: int, ng: int):
             return sol.x
 
         def assemble(xd):
-            return tables.sum_copies(xd) / tables.counts
+            with trace("feti.reassembly"):
+                return tables.sum_copies(xd) / tables.counts
 
         def ext(v, fill):
             return torch.cat([v, v.new_full((1,), fill)])[l2g_c]
@@ -881,12 +907,13 @@ def make_fast_solve_fn(opts: FetiOptions, tol: Tolerances, nref: int, ng: int):
         x_dec = solve_chain(b)
         xg = assemble(x_dec)
         for _ in range(nref):
-            u_lift = torch.where(real, ext(xg, 0.0), 0.0)
-            r = torch.where(real, b - qp.A.mv(u_lift), 0.0)
-            # sum the copies (= assembled residual), re-split with
-            # D = 1/multiplicity (decompose_rhs_by_multiplicity)
-            rg = tables.sum_copies(r)
-            r_dec = torch.where(real, ext(rg, 0.0) / ext(tables.counts, 1.0), 0.0)
+            with trace("feti.defect"):
+                u_lift = torch.where(real, ext(xg, 0.0), 0.0)
+                r = torch.where(real, b - qp.A.mv(u_lift), 0.0)
+                # sum the copies (= assembled residual), re-split with
+                # D = 1/multiplicity (decompose_rhs_by_multiplicity)
+                rg = tables.sum_copies(r)
+                r_dec = torch.where(real, ext(rg, 0.0) / ext(tables.counts, 1.0), 0.0)
             xg = xg + assemble(solve_chain(r_dec))
         return xg, x_dec, results
 
@@ -940,22 +967,29 @@ class FetiSolverSparse:
             self._pf = build_sparse_pf(self.qp, self.opts)
 
     def solve(self, b_loc=None, tol: Tolerances = Tolerances()) -> FetiResult:
+        """One solve on the factors of the constructor, with the load
+        ``b_loc`` (default: the problem's); the span ``feti.solve``."""
+        with trace("feti.solve"):
+            return self._solve(b_loc, tol)
+
+    def _solve(self, b_loc, tol: Tolerances) -> FetiResult:
         prob, qp = self.prob, self.qp
         self._ensure_pf()
         if b_loc is not None:
-            b_loc = np.asarray(b_loc)
-            if self._elim is not None:
-                # re-apply the Dirichlet-in-Hessian rhs transform (lift +
-                # alpha*value rows) — a raw rhs against the eliminated
-                # factors silently violates the boundary conditions
-                b_loc = self._elim.apply_b(b_loc)
-            prob = dataclasses.replace(prob, b_loc=b_loc)
-            # under a mesh: this rank's subdomains of the new rhs (large.py:1013-1020)
-            lo, hi = (0, prob.ns) if self.opts.mesh is None else self.opts.mesh.subdomains(
-                prob.ns)
-            b_pad = np.zeros((hi - lo, qp.BE.nl))
-            b_pad[:, : prob.nl] = prob.b_loc[lo:hi]
-            qp = qp.replace(b=torch.as_tensor(b_pad.reshape(-1), device=self.device))
+            with trace("feti.rhs"):
+                b_loc = np.asarray(b_loc)
+                if self._elim is not None:
+                    # re-apply the Dirichlet-in-Hessian rhs transform (lift +
+                    # alpha*value rows) — a raw rhs against the eliminated
+                    # factors silently violates the boundary conditions
+                    b_loc = self._elim.apply_b(b_loc)
+                prob = dataclasses.replace(prob, b_loc=b_loc)
+                # under a mesh: this rank's subdomains of the new rhs (large.py:1013-1020)
+                lo, hi = (0, prob.ns) if self.opts.mesh is None else self.opts.mesh.subdomains(
+                    prob.ns)
+                b_pad = np.zeros((hi - lo, qp.BE.nl))
+                b_pad[:, : prob.nl] = prob.b_loc[lo:hi]
+                qp = qp.replace(b=torch.as_tensor(b_pad.reshape(-1), device=self.device))
         from ..sys import tracing
 
         with deterministic_mode(self.opts.deterministic):
@@ -977,8 +1011,10 @@ class FetiSolverSparse:
         fn = make_fast_solve_fn(self.opts, tol, self.primal_refine, prob.n_global)
         x_global, x_dec, results = fn(qp, self.kplus, self.kplus_post, self._pf, qp.b,
                                       self._tables)
+        with trace("feti.to_host"):
+            x_host = x_global.cpu().numpy()
         return FetiResult(
-            x_global=x_global.cpu().numpy(), u_decomposed=x_dec,
+            x_global=x_host, u_decomposed=x_dec,
             solution=Solution(x=x_dec), result=results[-1], qp=qp, dual_qp=None,
             results=results,
         )

@@ -31,6 +31,7 @@ import torch
 
 from .. import Struct
 from ..core.linop import Dense, LinearOperator, operator_device
+from ..sys.tracing import trace
 
 SPARSE_GGT_THRESHOLD = 2048
 EXPLICIT_INV_MIN_K = 256
@@ -160,12 +161,13 @@ class Projector(Struct):
         return self.G.rmv(self.apply_cp(self.G.mv(x))).to(x.dtype)
 
     def apply_p(self, x):
-        if self.G.shape[0] == self.G.shape[1]:
-            # a square G of full row rank has ker G = {0}: P = 0 exactly.
-            # x - Q x would leave round-off of the size of eps |x|, on which
-            # a projected CG iterates (its curvature may come out positive)
-            return torch.zeros_like(x)
-        return x - self.apply_q(x)
+        with trace("projector.apply_p"):
+            if self.G.shape[0] == self.G.shape[1]:
+                # a square G of full row rank has ker G = {0}: P = 0 exactly.
+                # x - Q x would leave round-off of the size of eps |x|, on which
+                # a projected CG iterates (its curvature may come out positive)
+                return torch.zeros_like(x)
+            return x - self.apply_q(x)
 
     def apply_gtg(self, x):
         return self.G.rmv(self.G.mv(x))
@@ -250,9 +252,10 @@ class CachedProjector:
         return out
 
     def apply_p(self, x):
-        if self.pf.G.shape[0] == self.pf.G.shape[1]:
-            return torch.zeros_like(x)  # ker G = {0}, as Projector.apply_p
-        return x - self.apply_q(x)
+        with trace("projector.apply_p"):
+            if self.pf.G.shape[0] == self.pf.G.shape[1]:
+                return torch.zeros_like(x)  # ker G = {0}, as Projector.apply_p
+            return x - self.apply_q(x)
 
     def apply_half_q(self, x):
         self.cp_applications += 1

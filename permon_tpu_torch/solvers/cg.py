@@ -20,6 +20,7 @@ from .. import Struct
 from ..core import detred
 from ..core.convergence import ConvergedReason, Tolerances, converged_default
 from ..qp.qp import QP
+from ..sys.tracing import trace
 
 
 @dataclasses.dataclass
@@ -42,7 +43,14 @@ def cg(qp: QP, tol: Tolerances = Tolerances(), precond: Optional[Callable] = Non
     being applied, a second projection y = P z.  ``monitor`` prints
     ``{it:>3} CG ||Pr||={rnorm:.10e}`` before each convergence test, as
     the JAX package does.  ``history`` > 0 records that many residual
-    norms."""
+    norms.  The whole call is the span ``cg.solve``, each turn of its loop
+    ``cg.iteration`` (iterations + 1 turns), each host read ``cg.read``
+    (iterations + 3)."""
+    with trace("cg.solve"):
+        return _cg(qp, tol, precond, project, monitor, history)
+
+
+def _cg(qp, tol, precond, project, monitor, history) -> CGResult:
     from ..core.precision import dot_bundler, reducers
 
     A, b = qp.A, qp.b
@@ -51,7 +59,8 @@ def cg(qp: QP, tol: Tolerances = Tolerances(), precond: Optional[Callable] = Non
     fuse = qp.dots_dtype is not None or detred.enabled()
     x = qp.initial_vector()
 
-    norm_rhs = float(vnorm(b))
+    with trace("cg.read"):
+        norm_rhs = float(vnorm(b))
     ttol = max(tol.rtol * norm_rhs, tol.atol)
     P = project if project is not None else (lambda v: v)
     nh = int(history)
@@ -72,44 +81,49 @@ def cg(qp: QP, tol: Tolerances = Tolerances(), precond: Optional[Callable] = Non
     broke = torch.zeros((), dtype=torch.bool, device=b.device)
     it, nmv, reason = 0, 1, 0
     while True:
-        rnorm_t = torch.sqrt(rn2.real) if fuse else vnorm(w)
-        # the one host read of the iteration: ||Pr|| and the last step's
-        # breakdown flag
-        rnorm, broke_h = torch.stack([rnorm_t.to(torch.float64),
-                                      broke.to(torch.float64)]).tolist()
-        if broke_h:
-            # breakdown a la KSPSolve_CG: nonpositive or non-finite
-            # curvature — the iterate was kept, stop with CONVERGED_ATOL
-            reason = int(ConvergedReason.CONVERGED_ATOL)
-            break
-        if monitor:
-            print(f"{it:>3} CG ||Pr||={rnorm:.10e}")
-        if nh:
-            hist[min(it, nh - 1)] = rnorm_t
-        reason = converged_default(it, rnorm, ttol=ttol, atol=tol.atol,
-                                   divtol=tol.divtol, norm_rhs_div=norm_rhs,
-                                   max_it=tol.max_it)
-        if reason != 0:
-            break
-        Ap = A.mv(p)
-        pAp = vdot(p, Ap)
-        a = wz / pAp
-        broke = torch.logical_not(torch.isfinite(a)) | (pAp <= 0.0)
-        a = torch.where(broke, torch.zeros_like(a), a).to(x.dtype)
-        x = x + a * p
-        r = r - a * Ap
-        w = P(r)
-        y = precondition(w)
-        if fuse:
-            wz2, rn2 = vdots([(w, y), (w, w)])
-        else:
-            wz2 = vdot(w, y)
-        beta = torch.where(broke, torch.zeros_like(wz2), wz2 / wz).to(x.dtype)
-        p = y + beta * p
-        wz = wz2
-        it += 1
-        nmv += 1
-    return CGResult(x=x, reason=int(reason), iterations=it, rnorm=float(vnorm(w)),
+        # one span a turn: the read, the convergence test and the update
+        with trace("cg.iteration"):
+            rnorm_t = torch.sqrt(rn2.real) if fuse else vnorm(w)
+            # the one host read of the iteration: ||Pr|| and the last step's
+            # breakdown flag
+            with trace("cg.read"):
+                rnorm, broke_h = torch.stack([rnorm_t.to(torch.float64),
+                                              broke.to(torch.float64)]).tolist()
+            if broke_h:
+                # breakdown a la KSPSolve_CG: nonpositive or non-finite
+                # curvature — the iterate was kept, stop with CONVERGED_ATOL
+                reason = int(ConvergedReason.CONVERGED_ATOL)
+                break
+            if monitor:
+                print(f"{it:>3} CG ||Pr||={rnorm:.10e}")
+            if nh:
+                hist[min(it, nh - 1)] = rnorm_t
+            reason = converged_default(it, rnorm, ttol=ttol, atol=tol.atol,
+                                       divtol=tol.divtol, norm_rhs_div=norm_rhs,
+                                       max_it=tol.max_it)
+            if reason != 0:
+                break
+            Ap = A.mv(p)
+            pAp = vdot(p, Ap)
+            a = wz / pAp
+            broke = torch.logical_not(torch.isfinite(a)) | (pAp <= 0.0)
+            a = torch.where(broke, torch.zeros_like(a), a).to(x.dtype)
+            x = x + a * p
+            r = r - a * Ap
+            w = P(r)
+            y = precondition(w)
+            if fuse:
+                wz2, rn2 = vdots([(w, y), (w, w)])
+            else:
+                wz2 = vdot(w, y)
+            beta = torch.where(broke, torch.zeros_like(wz2), wz2 / wz).to(x.dtype)
+            p = y + beta * p
+            wz = wz2
+            it += 1
+            nmv += 1
+    with trace("cg.read"):
+        rnorm = float(vnorm(w))
+    return CGResult(x=x, reason=int(reason), iterations=it, rnorm=rnorm,
                     nmv=nmv, rnorm_history=hist if nh else None)
 
 

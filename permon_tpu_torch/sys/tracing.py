@@ -7,37 +7,66 @@ Reference mechanisms mirrored (src/sys, include/permonsys.h):
   (PERMON_TPU_DEBUG/TRACE/INFO) or :func:`set_from_options`;
 - function-level call tracing with wall timers: `-permon_trace` prints
   indented BEGIN/END FUNCTION lines (PetscFunctionBeginI/ReturnI macros,
-  permonsys.h:102-134) — here the :func:`traced` decorator / :func:`trace`
+  permonsys.h:102-134) — here the :func:`traced` decorator / :class:`trace`
   context manager;
 - PetscLogEvent-style named event timers (:func:`log_event`, report via
   :func:`event_report`) for host code, and per-operator op counters fed by
   the Timer wrapper (core.linop.Timer, the MATTIMER analog);
 - PermonDebug1..6-style leveled debug printf (:func:`debug`).
 
-Device time is the job of ``torch.profiler``: Timer opens a
-``record_function`` range per apply.  One difference to the JAX package:
-there an operator is traced once per compilation, so its counters count
-traces; the port runs eagerly, so they count applications.
+One span, two sinks.  Every :class:`trace` span is always kept in memory
+and written nowhere: ``events[name]`` holds its count, total seconds and
+self seconds (the total less what its child spans cover), and
+``parents[(parent, name)]`` how often it opened directly under ``parent``
+(None at the top).  While a ``torch.profiler`` records, the span also opens
+a ``record_function`` range of its name, so it lands on the profiler's
+timeline beside the device's records; otherwise no range is opened, and a
+span costs two clock reads and a few dict updates.  There is no switch:
+the spans of the large path are always on.
+
+The large linear path opens these spans (names are read by the benchmark):
+``feti.host_setup`` and ``feti.factor`` (set-up, synchronised: they fill
+``FetiSolverSparse.timings``), ``feti.solve``, ``feti.rhs``,
+``feti.dual_solve``, ``feti.dualize``, ``feti.post``, ``feti.reassembly``,
+``feti.defect``, ``feti.to_host`` (feti/large.py), ``cg.solve``,
+``cg.iteration`` and ``cg.read`` (solvers/cg.py; a read is a
+device-to-host copy), ``kplus.solve`` (one forward and backward pass of
+core/band.py's factors), ``gather.apply`` (one per core/sell.py
+gather_apply call) and ``projector.apply_p`` (qp/projector.py).  The
+counts by parent give the F applies by purpose: ``kplus.solve`` under
+``cg.iteration``, ``feti.dualize`` or ``feti.post``.  Timer's applies
+(``<name>.mv`` / ``<name>.rmv``) are spans too.  Spans are kept for one
+thread: the stack of open spans is the process's.
+
+One difference to the JAX package: there an operator is traced once per
+compilation, so its counters count traces; the port runs eagerly, so they
+count applications.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 debug_enabled = os.environ.get("PERMON_TPU_DEBUG", "0") not in ("0", "")
 trace_enabled = os.environ.get("PERMON_TPU_TRACE", "0") not in ("0", "")
 info_enabled = os.environ.get("PERMON_TPU_INFO", "0") not in ("0", "")
 
-_depth = 0
 #: (operator name, op) -> number of applications (Timer wrapper)
 op_counts: Dict[tuple, int] = defaultdict(int)
-#: event name -> [count, total seconds]
-events: Dict[str, list] = defaultdict(lambda: [0, 0.0])
+#: span name -> [count, total seconds, self seconds]
+events: Dict[str, list] = defaultdict(lambda: [0, 0.0, 0.0])
+#: (parent span name or None, span name) -> count
+parents: Dict[Tuple[Optional[str], str], int] = defaultdict(int)
+#: the open spans, innermost last
+_stack: List["trace"] = []
+_profiling = torch.autograd._profiler_enabled
+_clock = time.perf_counter
 
 
 def set_from_options(debug: Optional[bool] = None, trace: Optional[bool] = None,
@@ -68,27 +97,50 @@ def count_op(name: str, op: str) -> None:
     op_counts[(name, op)] += 1
 
 
-@contextlib.contextmanager
-def trace(name: str):
-    """BEGIN/END FUNCTION tracing with wall time (PetscFunctionBeginI)."""
-    global _depth
-    t0 = time.perf_counter()
-    if trace_enabled:
-        print("  " * _depth + f"BEGIN FUNCTION {name}")
-    _depth += 1
-    try:
-        yield
-    finally:
-        _depth -= 1
-        dt = time.perf_counter() - t0
-        events[name][0] += 1
-        events[name][1] += dt
+class trace:
+    """A named span of host wall time (PetscFunctionBeginI / PetscLogEvent):
+    ``with trace(name):``.  On exit it adds to ``events`` and ``parents``;
+    ``seconds`` then holds its duration.  BEGIN/END FUNCTION lines are
+    printed when ``trace_enabled``; a ``record_function`` range is opened
+    while a profiler records."""
+
+    __slots__ = ("name", "seconds", "_child", "_t0", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.seconds = 0.0
+
+    def __enter__(self) -> "trace":
         if trace_enabled:
-            print("  " * _depth + f"END FUNCTION {name} ({dt * 1e3:.3f} ms)")
+            print("  " * len(_stack) + f"BEGIN FUNCTION {self.name}")
+        _stack.append(self)
+        self._child = 0.0
+        self._range = None
+        if _profiling():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self._t0 = _clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        dt = self.seconds = _clock() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        _stack.pop()
+        parent = _stack[-1] if _stack else None
+        if parent is not None:
+            parent._child += dt
+        ev = events[self.name]
+        ev[0] += 1
+        ev[1] += dt
+        ev[2] += dt - self._child
+        parents[(parent.name if parent is not None else None, self.name)] += 1
+        if trace_enabled:
+            print("  " * len(_stack) + f"END FUNCTION {self.name} ({dt * 1e3:.3f} ms)")
 
 
 def traced(fn):
-    """Decorator form of :func:`trace` (the PetscFunctionBeginI/ReturnI pair)."""
+    """Decorator form of :class:`trace` (the PetscFunctionBeginI/ReturnI pair)."""
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
@@ -102,10 +154,15 @@ log_event = trace  # PetscLogEventBegin/End around a with-block
 
 
 def event_report() -> str:
-    """-log_view-style summary of host-side events and operator op counts."""
-    lines = ["Event                                Count     Total (s)"]
-    for name, (cnt, tot) in sorted(events.items(), key=lambda kv: -kv[1][1]):
-        lines.append(f"{name:<36} {cnt:>6} {tot:>12.6f}")
+    """-log_view-style summary: each span's count, total and self seconds,
+    the counts by parent, and the operator op counts."""
+    lines = ["Event                                Count     Total (s)      Self (s)"]
+    for name, (cnt, tot, own) in sorted(events.items(), key=lambda kv: -kv[1][1]):
+        lines.append(f"{name:<36} {cnt:>6} {tot:>12.6f} {own:>13.6f}")
+    if parents:
+        lines.append("Parent -> event                                        Count")
+        for (par, name), cnt in sorted(parents.items(), key=lambda kv: (str(kv[0][0]), kv[0][1])):
+            lines.append(f"{str(par) + ' -> ' + name:<54} {cnt:>6}")
     if op_counts:
         lines.append("Operator op                          Applies")
         for (name, op), cnt in sorted(op_counts.items()):
@@ -114,5 +171,8 @@ def event_report() -> str:
 
 
 def reset() -> None:
+    """Clear the counters and the span aggregates (the open spans stay
+    open and are counted when they close)."""
     op_counts.clear()
     events.clear()
+    parents.clear()

@@ -1,0 +1,172 @@
+"""The port's spans (permon_tpu_torch/sys/tracing.py) and where the large
+linear path opens them:
+
+- a span's self time is its total less its children's, and its count by
+  parent is kept;
+- a span opens a ``record_function`` range of its name only while a
+  profiler records;
+- ``trace`` keeps its ``events`` and BEGIN/END contract, ``seconds`` holds
+  the duration, ``traced`` names the span by the function;
+- one ``FetiSolverSparse.solve`` on the 12^3 box of
+  test_torch_feti_large.py counts its CG turns, reads and K+ passes as the
+  dual CG runs them, and its x_global is bitwise that of a solve under the
+  profiler.
+"""
+
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from permon_tpu_torch.core.convergence import Tolerances
+from permon_tpu_torch.feti.large import FetiSolverSparse
+from permon_tpu_torch.feti.solve import FetiOptions
+from permon_tpu_torch.problems import build_sparse
+from permon_tpu_torch.sys import tracing
+from permon_tpu_torch.sys.tracing import trace
+
+torch.set_num_threads(2)
+
+CELLS, GRID = (12, 12, 12), (2, 2, 2)
+F32 = dict(kplus_dtype=torch.float32, kplus_refine=2, primal_refine=1)
+
+
+def _busy(seconds):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        pass
+
+
+@pytest.mark.parametrize("children", [0, 1, 3])
+def test_self_time_is_total_less_children(children):
+    tracing.reset()
+    with trace("outer") as outer:
+        _busy(0.004)
+        for _ in range(children):
+            with trace("inner"):
+                _busy(0.003)
+    cnt, tot, own = tracing.events["outer"]
+    assert cnt == 1 and tot == outer.seconds >= 0.004 + 0.003 * children
+    inner = tracing.events["inner"][1] if children else 0.0
+    assert own == pytest.approx(tot - inner, abs=1e-12)
+    if children:
+        c_cnt, c_tot, c_own = tracing.events["inner"]
+        assert c_cnt == children and c_own == c_tot  # a leaf's self time is its total
+
+
+def test_counts_by_parent():
+    tracing.reset()
+    with trace("a"):
+        for _ in range(3):
+            with trace("b"):
+                with trace("c"):
+                    pass
+        with trace("c"):
+            pass
+    with trace("c"):
+        pass
+    assert dict(tracing.parents) == {(None, "a"): 1, ("a", "b"): 3, ("b", "c"): 3,
+                                     ("a", "c"): 1, (None, "c"): 1}
+    assert tracing.events["c"][0] == 5
+    rep = tracing.event_report()
+    assert "a -> b" in rep and "None -> c" in rep and "Self (s)" in rep
+
+
+def test_a_range_only_under_the_profiler(monkeypatch):
+    opened = []
+    real = torch.profiler.record_function
+
+    def spy(name):
+        opened.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", spy)
+    with trace("span.off"):
+        pass
+    assert opened == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with trace("span.on"):
+            with trace("span.inner"):
+                torch.ones(4).sum()
+    assert opened == ["span.on", "span.inner"]
+    names = [e.name for e in prof.events()]
+    assert "span.on" in names and "span.inner" in names and "span.off" not in names
+
+
+def test_trace_keeps_events_and_begin_end(capsys):
+    tracing.reset()
+    old = tracing.trace_enabled
+    tracing.set_from_options(trace=True)
+    try:
+        with trace("outer"):
+            with trace("inner"):
+                pass
+
+        @tracing.traced
+        def f():
+            return 7
+
+        assert f() == 7
+    finally:
+        tracing.set_from_options(trace=old)
+    out = capsys.readouterr().out.splitlines()
+    assert out[:2] == ["BEGIN FUNCTION outer", "  BEGIN FUNCTION inner"]
+    assert out[2].startswith("  END FUNCTION inner (") and out[3].startswith("END FUNCTION outer (")
+    assert out[4].endswith("BEGIN FUNCTION test_trace_keeps_events_and_begin_end.<locals>.f")
+    assert tracing.events["outer"][0] == tracing.events["inner"][0] == 1
+    assert tracing.log_event is trace
+
+
+@pytest.fixture(scope="module")
+def solved():
+    """Two solves of one solver on a new load: spans counted, then under the
+    profiler."""
+    prob = build_sparse(CELLS, GRID)
+    solver = FetiSolverSparse(prob, FetiOptions(gluing="nonred", coarse="sparse"),
+                              device="cpu", **F32)
+    assert solver.timings["host_setup_s"] > 0 and solver.timings["factor_s"] > 0
+    b = prob.b_loc * 1.5
+    tol = Tolerances(rtol=1e-6)
+    tracing.reset()
+    res = solver.solve(b_loc=b, tol=tol)
+    events = {k: list(v) for k, v in tracing.events.items()}
+    par = dict(tracing.parents)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        res_p = solver.solve(b_loc=b, tol=tol)
+    return res, events, par, res_p, [e.name for e in prof.events()]
+
+
+def test_solve_counts_cg_turns_reads_and_kplus(solved):
+    res, events, par, _, _ = solved
+    its = [r.iterations for r in res.results]
+    assert len(its) == 2 and all(r.reason == 2 for r in res.results)
+    assert events["cg.iteration"][0] == sum(i + 1 for i in its)
+    assert events["cg.read"][0] == sum(i + 3 for i in its)
+    assert par[("cg.iteration", "kplus.solve")] == sum(its)  # one per F apply in the loop
+    assert par[("cg.iteration", "cg.read")] == sum(i + 1 for i in its)
+    assert par[("cg.solve", "kplus.solve")] == 2  # r = b - F x0
+    assert events["feti.solve"][0] == events["feti.to_host"][0] == events["feti.rhs"][0] == 1
+    assert events["feti.dual_solve"][0] == events["feti.dualize"][0] == 2
+    assert events["feti.post"][0] == events["cg.solve"][0] == 2
+    assert events["feti.defect"][0] == 1 and events["feti.reassembly"][0] == 2
+    assert par[(None, "feti.solve")] == 1
+    # F applies by purpose: lambda0 and the projected dual, and the post chain
+    # (the refined K+: a forward and backward pass each, two refinements)
+    assert par[("feti.dualize", "kplus.solve")] > 0 and par[("feti.post", "kplus.solve")] > 0
+    assert events["kplus.solve"][0] == sum(n for (p, s), n in par.items() if s == "kplus.solve")
+    assert par[("cg.iteration", "projector.apply_p")] >= sum(its)
+    # B' and B around each K+ pass of an F apply in the loop
+    assert par[("cg.iteration", "gather.apply")] == 2 * sum(its)
+    for name, (cnt, tot, own) in events.items():
+        assert -1e-9 <= own <= tot + 1e-9, name
+    fs = events["feti.solve"]
+    assert fs[1] >= events["feti.dual_solve"][1] >= events["cg.solve"][1] >= events[
+        "cg.iteration"][1]
+
+
+def test_solve_under_the_profiler_is_bitwise_the_same(solved):
+    res, _, _, res_p, names = solved
+    np.testing.assert_array_equal(res_p.x_global, res.x_global)
+    for name in ("feti.solve", "cg.iteration", "kplus.solve", "gather.apply", "feti.to_host"):
+        assert name in names
