@@ -9,7 +9,9 @@ its Cholesky factor follows the recurrence
 
 run as a loop over the nb block rows with every step a batched (over
 subdomains) dense op.  Applies are two loops (forward/backward
-substitution) of batched GEMVs against the stored D^{-1} and F blocks.
+substitution) of batched GEMVs against the stored D^{-1} and F blocks;
+on a card one apply is the replay of a CUDA graph of those loops,
+captured once per operator and input shape (:meth:`BandCholInv._replay`).
 Floating subdomains get FIXING-DOF regularization (reference:
 src/mat/interface/permonmatregularize.c:117-287): Kreg = K + rho R_I
 (R_I'R_I)^{-1} R_I', an exact generalized inverse of K.
@@ -367,6 +369,22 @@ def factor_from_dia_sm(data: torch.Tensor, offsets, NB: int, dtype=None,
     return _factor_loop(block_row, nb, ns, NB, dt, cdt, dev)
 
 
+#: device -> the side stream on which K+ passes are captured
+_capture_streams: dict = {}
+
+
+@dataclasses.dataclass
+class _Replay:
+    """One captured K+ pass: the graph, its static input and output, and
+    the factors it reads."""
+
+    graph: Any
+    x: torch.Tensor
+    y: torch.Tensor
+    Dinv: torch.Tensor
+    F: torch.Tensor
+
+
 @dataclasses.dataclass
 class BandCholInv(LinearOperator):
     """y = Kreg^{-1} x via the stored block-tridiagonal Cholesky factors.
@@ -464,10 +482,59 @@ class BandCholInv(LinearOperator):
         return self._from_blocks(self._bwd(self._to_blocks(x))).to(x.dtype)
 
     def _solve(self, x):
-        """One forward and one backward pass: the span ``kplus.solve``."""
+        """One forward and one backward pass: the span ``kplus.solve``. On a
+        card, outside a stream capture, the pass is a CUDA graph's replay
+        (:meth:`_replay`); on the CPU, and inside a capture, it is launched
+        op by op (:meth:`_eager`)."""
         with trace("kplus.solve"):
             _check_tf32(x.device)
-            return self._from_blocks(self._bwd(self._fwd(self._to_blocks(x))))
+            if x.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+                return self._eager(x)
+            return self._replay(x)
+
+    def _eager(self, x):
+        """One forward and one backward pass, op by op, in the factors' dtype."""
+        return self._from_blocks(self._bwd(self._fwd(self._to_blocks(x))))
+
+    def _replay(self, x):
+        """:meth:`_eager` cast to x's dtype, as one replay of the graph that
+        this operator captured at its first call for x's shape, dtype and
+        device (captured again when ``Dinv`` or ``F`` is another tensor than
+        it was captured on). The graph reads its static input and writes its
+        static output; the result is a copy, so two results never alias.
+        The span ``kplus.replay`` opens around the replay alone."""
+        graphs = self.__dict__.setdefault("_graphs", {})
+        key = (tuple(x.shape), x.dtype, x.device)
+        g = graphs.get(key)
+        if g is None or g.Dinv is not self.Dinv or g.F is not self.F:
+            g = graphs[key] = self._capture(x)
+        g.x.copy_(x)
+        with trace("kplus.replay"):
+            if torch.autograd._profiler_enabled():
+                # the profiler ties a kernel to the operator open at its
+                # launch, and a span's range is a user range, not an
+                # operator: the launch gets an operator's range of its own
+                with torch._C._profiler._RecordFunctionFast("kplus.graph_launch"):
+                    g.graph.replay()
+            else:
+                g.graph.replay()
+        return g.y.clone()
+
+    def _capture(self, x) -> "_Replay":
+        """Capture one pass on a side stream, after an eager pass there (so
+        that cuBLAS holds its workspace on that stream), as
+        ``torch.cuda.graphs`` asks."""
+        sx = x.clone(memory_format=torch.contiguous_format)
+        s = _capture_streams.get(x.device)
+        if s is None:
+            s = _capture_streams[x.device] = torch.cuda.Stream(x.device)
+        s.wait_stream(torch.cuda.current_stream(x.device))
+        with torch.cuda.stream(s):
+            self._eager(sx)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=s):
+            sy = self._eager(sx).to(x.dtype)
+        return _Replay(graph=graph, x=sx, y=sy, Dinv=self.Dinv, F=self.F)
 
     def mv(self, x):
         y = self._solve(x).to(x.dtype)

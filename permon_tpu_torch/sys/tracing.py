@@ -31,7 +31,8 @@ The large linear path opens these spans (names are read by the benchmark):
 ``feti.defect``, ``feti.to_host`` (feti/large.py), ``cg.solve``,
 ``cg.iteration`` and ``cg.read`` (solvers/cg.py; a read is a
 device-to-host copy), ``kplus.solve`` (one forward and backward pass of
-core/band.py's factors), ``gather.apply`` (one per core/sell.py
+core/band.py's factors) and ``kplus.replay`` inside it (the replay of the
+pass's CUDA graph, on a card), ``gather.apply`` (one per core/sell.py
 gather_apply call) and ``projector.apply_p`` (qp/projector.py).  The
 counts by parent give the F applies by purpose: ``kplus.solve`` under
 ``cg.iteration``, ``feti.dualize`` or ``feti.post``.  Timer's applies

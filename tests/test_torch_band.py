@@ -308,6 +308,32 @@ def test_make_band_kplus_generalized_inverse(dtype, refine, tol):
         tband.make_band_kplus(blocks, bases, NB=16, device="cpu")
 
 
+@pytest.mark.parametrize("refine", [0, 2])
+def test_cpu_apply_builds_no_graph(monkeypatch, refine):
+    """On the CPU every K+ pass is launched op by op: nothing of
+    torch.cuda is touched, no ``kplus.replay`` span opens, and ``mv`` is
+    the eager passes' composition bitwise."""
+    from permon_tpu_torch.sys import tracing
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU apply reached torch.cuda")
+
+    for name in ("CUDAGraph", "graph", "Stream", "is_current_stream_capturing"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    K, NB = _case("box")
+    kp, _ = tband.make_band_kplus([K, (2.0 * K).tocsr()], NB=NB, dtype=torch.float32,
+                                  refine=refine, device="cpu")
+    x = _t(np.random.RandomState(5).standard_normal(kp.shape[0]))
+    tracing.reset()
+    y = kp.mv(x)
+    assert tracing.events["kplus.solve"][0] == 1 + refine
+    assert "kplus.replay" not in tracing.events and "_graphs" not in kp.__dict__
+    want = kp._eager(x).to(x.dtype)
+    for _ in range(refine):
+        want = want + kp._eager(x - kp.op.mv(want)).to(x.dtype)
+    assert y.dtype == x.dtype and torch.equal(y, want)
+
+
 @pytest.mark.parametrize("reorder", [True, False])
 @pytest.mark.parametrize("NB", [None, 384])
 def test_band_chol_single(reorder, NB):

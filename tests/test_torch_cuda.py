@@ -788,3 +788,163 @@ def test_examples_on_card(cuda_device):
     assert (res.iterations, res.inner_iterations, res.nmv) == (
         res_cpu.iterations, res_cpu.inner_iterations, res_cpu.nmv)
     np.testing.assert_allclose(x, x_cpu, rtol=0, atol=1e-9)
+
+
+# -- K+ as one CUDA graph replay a pass ------------------------------------------
+
+
+def _kplus_pair(device, which):
+    """(K+, refined K+) of a FetiSolverSparse on f32 factors with 2 refinement
+    steps: a Poisson box of 12^3 cells on 2x2x2 subdomains (NB 128), or an
+    elasticity box of 16 x 16 x 8 cells on 2x2x1 (NB 384)."""
+    from permon_tpu_torch.problems import build_sparse_elasticity
+
+    if which == "poisson":
+        prob, opts = build_sparse((12,) * 3, (2,) * 3), FetiOptions(gluing="nonred",
+                                                                     deterministic=True)
+    else:
+        prob = build_sparse_elasticity((16, 16, 8), (2, 2, 1))
+        opts = FetiOptions(gluing="nonred", nullspace="rbm", deterministic=True)
+    s = FetiSolverSparse(prob, opts, kplus_dtype=torch.float32, kplus_refine=2, device=device)
+    assert s.NB == (128 if which == "poisson" else 384)
+    return s.kplus, s.kplus_post
+
+
+def _eager_mv(kp, x):
+    """``kp.mv(x)`` with every pass launched op by op."""
+    y = kp._eager(x).to(x.dtype)
+    for _ in range(kp.refine if kp.op is not None else 0):
+        y = y + kp._eager(x - kp.op.mv(y)).to(x.dtype)
+    return y
+
+
+def _inputs(kp, device, k, seed=17):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(kp.shape[0], generator=g, dtype=torch.float64, device=device)
+            for _ in range(k)]
+
+
+@pytest.mark.parametrize("which", ["poisson", "elasticity"])
+def test_kplus_replay_equals_eager_bitwise(cuda_device, which):
+    """Five inputs in a row through one captured graph: each result bitwise
+    the eager pass's, one capture, a replay a pass."""
+    from permon_tpu_torch.sys import tracing
+
+    kp, _ = _kplus_pair(cuda_device, which)
+    xs = _inputs(kp, cuda_device, 5)
+    tracing.reset()
+    ys = [kp.mv(x) for x in xs]
+    assert tracing.events["kplus.solve"][0] == tracing.events["kplus.replay"][0] == 5
+    assert len(kp.__dict__["_graphs"]) == 1
+    for x, y in zip(xs, ys):
+        assert y.dtype == torch.float64 and torch.equal(y, _eager_mv(kp, x))
+
+
+def test_kplus_replay_results_never_alias(cuda_device):
+    """Two results held at once are two tensors, each the eager pass's, and
+    neither is the graph's static output."""
+    kp, _ = _kplus_pair(cuda_device, "poisson")
+    x1, x2 = _inputs(kp, cuda_device, 2, seed=3)
+    y1 = kp.mv(x1)
+    y2 = kp.mv(x2)
+    (rep,) = kp.__dict__["_graphs"].values()
+    assert len({y1.data_ptr(), y2.data_ptr(), rep.y.data_ptr()}) == 3
+    assert torch.equal(y1, _eager_mv(kp, x1)) and torch.equal(y2, _eager_mv(kp, x2))
+
+
+@pytest.mark.parametrize("which", ["poisson", "elasticity"])
+def test_refined_kplus_replay_equals_eager_bitwise(cuda_device, which):
+    """The refined apply (2 steps: three passes, each a replay of the one
+    graph, around the refinement operator's applies) is bitwise eager."""
+    from permon_tpu_torch.sys import tracing
+
+    _, kpost = _kplus_pair(cuda_device, which)
+    assert kpost.refine == 2 and kpost.op is not None
+    for x in _inputs(kpost, cuda_device, 2, seed=5):
+        tracing.reset()
+        y = kpost.mv(x)
+        assert tracing.events["kplus.replay"][0] == 3
+        assert torch.equal(y, _eager_mv(kpost, x))
+
+
+def test_kplus_graph_follows_the_factors(cuda_device):
+    """An operator with other factors of the same shape never replays the
+    first one's graph: not a replaced copy, not the same object given other
+    tensors, not a shallow copy that shares the cache."""
+    import copy
+
+    kp, _ = _kplus_pair(cuda_device, "poisson")
+    (x,) = _inputs(kp, cuda_device, 1, seed=9)
+    y = kp.mv(x)
+    other = kp.replace(Dinv=0.5 * kp.Dinv, F=kp.F.flip(1).contiguous())
+    y_other = other._eager(x).to(x.dtype)
+    assert not torch.equal(y_other, y)
+    assert torch.equal(other.mv(x), y_other)
+    twin = copy.copy(kp)
+    kp.Dinv, kp.F = other.Dinv, other.F
+    assert torch.equal(kp.mv(x), y_other)
+    assert torch.equal(twin.mv(x), y) and torch.equal(kp.mv(x), y_other)
+
+
+def test_solve_with_replays_equals_solve_with_eager_passes(cuda_device, monkeypatch):
+    """A FetiSolverSparse solve (f32 factors, 2 refinement steps, one defect
+    pass) gives the same iterations and a bitwise equal x_global whether K+
+    replays its graph or runs each pass op by op (patched in)."""
+    from permon_tpu_torch.core.band import BandCholInv
+    from permon_tpu_torch.sys import tracing
+
+    prob = build_sparse((12,) * 3, (2,) * 3)
+
+    def run():
+        s = FetiSolverSparse(prob, FetiOptions(gluing="nonred", deterministic=True),
+                             kplus_dtype=torch.float32, kplus_refine=2, primal_refine=1,
+                             device=cuda_device)
+        tracing.reset()
+        r = s.solve(b_loc=1.5 * prob.b_loc, tol=Tolerances(rtol=1e-6))
+        return r, tracing.events.get("kplus.replay", [0])[0], tracing.events["kplus.solve"][0]
+
+    r_graph, n_graph, passes = run()
+    monkeypatch.setattr(BandCholInv, "_replay", lambda self, x: self._eager(x).to(x.dtype))
+    r_eager, n_eager, passes_eager = run()
+    assert n_graph == passes == passes_eager and n_eager == 0
+    assert ([c.iterations for c in r_graph.results]
+            == [c.iterations for c in r_eager.results])
+    assert all(c.reason == 2 for c in r_graph.results)
+    np.testing.assert_array_equal(r_graph.x_global, r_eager.x_global)
+
+
+def test_profiler_attributes_replayed_kernels_to_kplus_solve(cuda_device, monkeypatch):
+    """The benchmark's reader of device time per ``kplus.solve`` range
+    (h100bench/program_spans.py) finds the replayed kernels, for a graph
+    captured before the profiler started: above 0 and within 10% of the
+    eager passes' (north-star blocks, NB 768, 16 subdomains)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from h100bench.program_spans import range_device_seconds
+    from permon_tpu_torch.core.band import BandCholInv
+
+    nb, ns, NB = 8, 16, 768
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    Dinv = torch.randn(nb, ns, NB, NB, generator=g, device=cuda_device) * (0.5 / NB ** 0.5)
+    F = torch.randn(nb, ns, NB, NB, generator=g, device=cuda_device) * (0.5 / NB ** 0.5)
+    F[0] = 0.0
+    kp = BandCholInv(Dinv=Dinv, F=F, shape=(nb * ns * NB,) * 2)
+    (x,) = _inputs(kp, cuda_device, 1, seed=4)
+    kp.mv(x)
+
+    def device_seconds(passes=3):
+        kp.mv(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(passes):
+                kp.mv(x)
+            torch.cuda.synchronize()
+        n, sec = range_device_seconds(prof, "kplus.solve")
+        assert n == passes
+        return sec / passes
+
+    replay = device_seconds()
+    monkeypatch.setattr(BandCholInv, "_replay", lambda self, x: self._eager(x).to(x.dtype))
+    eager = device_seconds()
+    assert replay > 0 and eager > 0
+    assert abs(replay - eager) <= 0.1 * eager, (replay, eager)
