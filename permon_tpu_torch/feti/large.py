@@ -685,7 +685,8 @@ class BlockCoarse(LinearOperator):
     ``inv``, the flat slot of each column (a gather; the JAX package
     scatter-adds the slots instead, which on CUDA would mean atomics).
     Reference: the implicit coarse-problem action of qppf.c:610-645 with
-    MATEXTENSION G (extension.c:476-540)."""
+    MATEXTENSION G (extension.c:476-540).  Spans: ``coarse.g_mv`` and
+    ``coarse.g_rmv``, one a call."""
 
     Rb: torch.Tensor  # (ns, nlp, kf) f64 block nullspace columns, zero-padded
     cols: torch.Tensor  # (ns, kf) int64 global coarse column ids, pad -> k
@@ -705,22 +706,25 @@ class BlockCoarse(LinearOperator):
         return (self.k, self.B.shape[0])
 
     def mv(self, v):
-        ns, nlp, kf = self.Rb.shape
-        w = self.B.rmv(v).reshape(ns, nlp).to(self.Rb.dtype)
-        s = det_sum(self.Rb * w[:, :, None], axis=1)  # (ns, kf), fixed tree over the dofs
-        if self.mesh is None:
-            return s.reshape(-1)[self.inv].to(v.dtype)
-        # each column has one owner: the other ranks add exact zeros
-        part = torch.cat([s.reshape(-1), s.new_zeros(1)])[self.inv]
-        return all_reduce_sum(part, self.mesh).to(v.dtype)
+        with trace("coarse.g_mv"):
+            ns, nlp, kf = self.Rb.shape
+            w = self.B.rmv(v).reshape(ns, nlp).to(self.Rb.dtype)
+            s = det_sum(self.Rb * w[:, :, None], axis=1)  # (ns, kf), fixed tree over the dofs
+            if self.mesh is None:
+                return s.reshape(-1)[self.inv].to(v.dtype)
+            # each column has one owner: the other ranks add exact zeros
+            part = torch.cat([s.reshape(-1), s.new_zeros(1)])[self.inv]
+            return all_reduce_sum(part, self.mesh).to(v.dtype)
 
     def rmv(self, w):
-        ns, nlp, kf = self.Rb.shape
-        wb = torch.cat([w.to(self.Rb.dtype), w.new_zeros(1, dtype=self.Rb.dtype)])[self.cols]
-        y = self.Rb[:, :, 0] * wb[:, None, 0]
-        for t in range(1, kf):  # kf <= 6 adds in slot order
-            y = y + self.Rb[:, :, t] * wb[:, None, t]
-        return self.B.mv(y.reshape(-1)).to(w.dtype)
+        with trace("coarse.g_rmv"):
+            ns, nlp, kf = self.Rb.shape
+            wb = torch.cat([w.to(self.Rb.dtype),
+                            w.new_zeros(1, dtype=self.Rb.dtype)])[self.cols]
+            y = self.Rb[:, :, 0] * wb[:, None, 0]
+            for t in range(1, kf):  # kf <= 6 adds in slot order
+                y = y + self.Rb[:, :, t] * wb[:, None, t]
+            return self.B.mv(y.reshape(-1)).to(w.dtype)
 
 
 def _column_owners(cols: torch.Tensor, k: int, partial: bool = False) -> torch.Tensor:

@@ -127,29 +127,30 @@ class Projector(Struct):
     def apply_cp(self, v):
         """Coarse-problem solve (GG')^{-1} v (QPPFApplyCP, qppf.c:610-645);
         the factor math runs at the factor's precision, the result is cast
-        back to the input dtype."""
-        if self.orthonormal_rows:
-            return v
-        if self.cp_dist is not None:
-            return self.cp_dist.mv(v)
-        if self.ggt_band is not None:
-            m = self.G.shape[0]
-            vp = torch.zeros(self.ggt_band.shape[0], dtype=v.dtype, device=v.device)
-            vp[:m] = v[self.cp_perm]
-            y = self.ggt_band.mv(vp)
-            # cp_perm is a permutation: an indexed assignment, no accumulation
-            out = torch.empty_like(v)
-            out[self.cp_perm] = y[:m]
-            return out
-        if self.ggt_inv is not None:
-            if self.ggt_inv.shape[0] >= EXPLICIT_INV_MIN_K:
-                from ..core.detred import det_sum
+        back to the input dtype; the span ``projector.apply_cp``."""
+        with trace("projector.apply_cp"):
+            if self.orthonormal_rows:
+                return v
+            if self.cp_dist is not None:
+                return self.cp_dist.mv(v)
+            if self.ggt_band is not None:
+                m = self.G.shape[0]
+                vp = torch.zeros(self.ggt_band.shape[0], dtype=v.dtype, device=v.device)
+                vp[:m] = v[self.cp_perm]
+                y = self.ggt_band.mv(vp)
+                # cp_perm is a permutation: an indexed assignment, no accumulation
+                out = torch.empty_like(v)
+                out[self.cp_perm] = y[:m]
+                return out
+            if self.ggt_inv is not None:
+                if self.ggt_inv.shape[0] >= EXPLICIT_INV_MIN_K:
+                    from ..core.detred import det_sum
 
-                return det_sum(self.ggt_inv * v[None, :].to(self.ggt_inv.dtype),
-                               axis=-1).to(v.dtype)
-            return (self.ggt_inv @ v.to(self.ggt_inv.dtype)).to(v.dtype)
-        vc = v.to(self.ggt_chol.dtype)[:, None]
-        return torch.cholesky_solve(vc, self.ggt_chol)[:, 0].to(v.dtype)
+                    return det_sum(self.ggt_inv * v[None, :].to(self.ggt_inv.dtype),
+                                   axis=-1).to(v.dtype)
+                return (self.ggt_inv @ v.to(self.ggt_inv.dtype)).to(v.dtype)
+            vc = v.to(self.ggt_chol.dtype)[:, None]
+            return torch.cholesky_solve(vc, self.ggt_chol)[:, 0].to(v.dtype)
 
     def apply_half_q(self, x):
         return self.apply_cp(self.G.mv(x)).to(x.dtype)

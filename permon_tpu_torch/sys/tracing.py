@@ -33,9 +33,14 @@ The large linear path opens these spans (names are read by the benchmark):
 device-to-host copy), ``kplus.solve`` (one forward and backward pass of
 core/band.py's factors) and ``kplus.replay`` inside it (the replay of the
 pass's CUDA graph, on a card), ``gather.apply`` (one per core/sell.py
-gather_apply call) and ``projector.apply_p`` (qp/projector.py).  The
-counts by parent give the F applies by purpose: ``kplus.solve`` under
-``cg.iteration``, ``feti.dualize`` or ``feti.post``.  Timer's applies
+gather_apply call), ``projector.apply_p`` and ``projector.apply_cp`` (the
+coarse-problem solve inside it; qp/projector.py), and ``coarse.g_mv`` /
+``coarse.g_rmv`` (one G or G' apply of feti/large.py's BlockCoarse, the
+coarse operator of the rigid-body nullspace).  The counts by parent give
+the F applies by purpose: ``kplus.solve`` under ``cg.iteration``,
+``feti.dualize`` or ``feti.post``; and the G applies by purpose:
+``coarse.g_mv`` / ``coarse.g_rmv`` under ``projector.apply_p``,
+``feti.dualize`` or ``feti.post``.  Timer's applies
 (``<name>.mv`` / ``<name>.rmv``) are spans too.  Spans are kept for one
 thread: the stack of open spans is the process's.
 

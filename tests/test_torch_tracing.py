@@ -10,7 +10,11 @@ linear path opens them:
 - one ``FetiSolverSparse.solve`` on the 12^3 box of
   test_torch_feti_large.py counts its CG turns, reads and K+ passes as the
   dual CG runs them, and its x_global is bitwise that of a solve under the
-  profiler.
+  profiler;
+- one solve of a small elastic box whose coarse operator is a BlockCoarse
+  (the rigid-body nullspace) opens ``coarse.g_mv``, ``coarse.g_rmv`` and
+  ``projector.apply_cp`` once each for every P apply, and under
+  ``feti.dualize`` and ``feti.post`` besides.
 """
 
 import time
@@ -22,7 +26,7 @@ import torch
 from permon_tpu_torch.core.convergence import Tolerances
 from permon_tpu_torch.feti.large import FetiSolverSparse
 from permon_tpu_torch.feti.solve import FetiOptions
-from permon_tpu_torch.problems import build_sparse
+from permon_tpu_torch.problems import build_sparse, build_sparse_elasticity
 from permon_tpu_torch.sys import tracing
 from permon_tpu_torch.sys.tracing import trace
 
@@ -170,3 +174,49 @@ def test_solve_under_the_profiler_is_bitwise_the_same(solved):
     np.testing.assert_array_equal(res_p.x_global, res.x_global)
     for name in ("feti.solve", "cg.iteration", "kplus.solve", "gather.apply", "feti.to_host"):
         assert name in names
+
+
+@pytest.fixture(scope="module")
+def elastic_spans():
+    """The spans of one re-solve of an elastic box (6 rigid-body modes a
+    floating subdomain, the clamped face eliminated in the Hessian), its G a
+    BlockCoarse: the dense-G cutoff is lowered, as the 1.18M-dof box passes
+    it."""
+    from permon_tpu_torch.feti.large import BlockCoarse
+    from permon_tpu_torch.qp import transforms
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(transforms, "DENSE_G_ELEMENTS", 16)
+    try:
+        prob = build_sparse_elasticity((8, 8, 8), (2, 2, 2))
+        opts = FetiOptions(gluing="nonred", nullspace="rbm", deterministic=True,
+                           coarse="sparse", dirichlet_by_B=False)
+        solver = FetiSolverSparse(prob, opts, device="cpu", **F32)
+        tol = Tolerances(rtol=1e-5)
+        solver.solve(b_loc=prob.b_loc, tol=tol)
+        assert isinstance(solver._pf.G, BlockCoarse)
+        tracing.reset()
+        res = solver.solve(b_loc=prob.b_loc * 1.5, tol=tol)
+    finally:
+        mp.undo()
+    return res, {k: list(v) for k, v in tracing.events.items()}, dict(tracing.parents)
+
+
+def test_block_coarse_spans_count_the_g_applies(elastic_spans):
+    res, events, par = elastic_spans
+    assert all(r.reason == 2 for r in res.results)
+    n_p = events["projector.apply_p"][0]
+    assert n_p >= sum(r.iterations for r in res.results)
+    # one P = I - G'(GG')^-1 G apply: one G, one coarse solve, one G'
+    for name in ("coarse.g_mv", "coarse.g_rmv", "projector.apply_cp"):
+        assert par[("projector.apply_p", name)] == n_p, name
+    # lambda0 = G'(GG')^-1 e in the dualization, alpha = (GG')^-1 G(...) in the post chain
+    assert par[("feti.dualize", "coarse.g_rmv")] > 0
+    assert par[("feti.dualize", "projector.apply_cp")] > 0
+    assert par[("feti.post", "coarse.g_mv")] > 0
+    assert par[("feti.post", "projector.apply_cp")] > 0
+    for name in ("coarse.g_mv", "coarse.g_rmv", "projector.apply_cp"):
+        assert events[name][0] == sum(n for (p, s), n in par.items() if s == name), name
+    # each G apply runs one gather (B' in G, B in G')
+    assert par[("coarse.g_mv", "gather.apply")] == events["coarse.g_mv"][0]
+    assert par[("coarse.g_rmv", "gather.apply")] == events["coarse.g_rmv"][0]
