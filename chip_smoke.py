@@ -35,7 +35,7 @@ Drives the port's main paths and checks them:
 Phases:
 
 1. a CUDA device is visible; prints the card's name and power limit;
-2. builds both CUDA kernels from permon_tpu_torch/csrc (one nvcc each,
+2. builds the three CUDA kernels from permon_tpu_torch/csrc (one nvcc each,
    started together) and prints the ptxas register/spill lines;
 3. gather kernel phase: the north-star gather tables (B, B' with its
    overflow, the reassembly table of the warm solve), the contact rows'
@@ -60,11 +60,21 @@ Phases:
    relative; the same times as in phase 3, torch.mv on a CSR tensor (the
    library call, used nowhere in the port), the launch floor of the
    measurement and the host cost of one wrapper call;
+4b. fixed-tree kernel phase (csrc/det_sum.cu): det_sum / det_dots on card
+   tensors at the main paths' shapes (BlockCoarse.mv's (108, 13440, 6) x w
+   along axis 1, apply_cp's (540, 540) x v, CG's dots over 245,850 and
+   94,563 unknowns alone and as two pairs, DenseTree.mv / .rmv's (48,
+   94,563) along both axes) against det_sum_plain on the same inputs,
+   bitwise, in the launches the plan names; the kernel's device time (the
+   profiler's kernel records after a 256 MB read, median and range of five
+   rounds), the plain tree's and torch.sum(a * b, dim)'s the same way, the
+   host time a call, the bound;
 5. the 64-subdomain 21^3 twin: reason 2, assembled residual < 1e-8,
    22-24 dual CG iterations (23 on the CPU);
 6. the north star: factorize, solve, re-solve with 1.5 b; reason 2 on
    both, assembled residual <= 1e-6 (scipy f64), linear re-solve, and the
-   gather kernel launched on the main path;
+   gather kernel and the fixed-tree kernel launched on the main path (its
+   deterministic trees);
 7. the QP main path with nothing but the default device: SEll chosen,
    reason 2, sell_mv launches = Hessian products of MPRGP + of the power
    method, the iterate inside the box exactly, the projected gradient
@@ -195,9 +205,11 @@ north star; ``v1_ms``: the replaced kernel the same way, in turns;
 kernel's device time by the profiler; ``floor_ms``: what ``ms`` reads for a
 32-thread launch; ``bf16_f32_*``: sell_mv's (bf16, f32) pair the same
 way; ``launches``: every counted launch of the script, ``launches_examples``
-those of phase 15 alone, ``launches_api`` those of phase 16), the last line {"ok": true,
+those of phase 15 alone, ``launches_api`` those of phase 16; for det_sum
+``launches`` are phase 6's, ``ms`` its device time at BlockCoarse.mv's
+shape by the profiler, ``shapes`` phase 4b's rows), the last line {"ok": true,
 "device": ...}.  Development options, none of which prints the result lines:
-``--kernels-only`` stops after phase 4; ``--only=9,10`` runs phases 1, 2
+``--kernels-only`` stops after phase 4b; ``--only=9,10`` runs phases 1, 2
 and the named ones of 9, 9c, 9t, 10, 11 (11 after phase 7), 12, 12c, 13, 15
 (with the row-path solves of 12a / 12b and phase 7 it compares with), 16 (with
 phase 7's solve and phase 6's operator, built by the phase itself), 14 (with the
@@ -560,6 +572,135 @@ def phase_kernel(prob, eprob, eBI, dev):
     return record
 
 
+def tree_shapes(dev):
+    """The fixed trees of the main paths at their shapes, f64: (label,
+    arguments of det_sum or the pairs of det_dots, unique input bytes,
+    output values)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def r(*shape):
+        return torch.randn(*shape, dtype=torch.float64, device=dev, generator=g)
+
+    x, y, xp, yp = r(245850), r(245850), r(94563), r(94563)
+    return [
+        ("BlockCoarse.mv (108, 13440, 6) x w along axis 1", (r(108, 13440, 6), 1,
+                                                              r(108, 13440)[:, :, None]),
+         108 * 13440 * 7 * 8, 648),
+        ("apply_cp (540, 540) x v", (r(540, 540), -1, r(540)[None, :]), (540 * 540 + 540) * 8,
+         540),
+        ("CG dot (1, 245850)", (x, -1, y), 2 * 245850 * 8, 1),
+        ("CG dots (2, 245850)", [(x, y), (y, y)], 2 * 245850 * 8, 2),
+        ("CG dot (1, 94563)", (xp, -1, yp), 2 * 94563 * 8, 1),
+        ("DenseTree.mv (48, 94563) x x along axis 1", (r(48, 94563), -1, xp[None, :]),
+         (48 * 94563 + 94563) * 8, 48),
+        ("DenseTree.rmv (48, 94563) x y along axis 0", (r(48, 94563), 0, r(48)[:, None]),
+         (48 * 94563 + 48) * 8, 94563),
+    ]
+
+
+def tree_device_ms(fn, flush, rounds=5, reps=40):
+    """Milliseconds a call of fn() keeps the device busy by the profiler's
+    kernel records, each call after a read of the 256 MB ``flush`` (so that
+    the inputs come from device memory and no dirty line of another kernel
+    is written back in their time; its max-reduction is left out by name):
+    ((median, least, most) over the rounds of ``reps`` calls kept, the
+    kernels a call launches, the rounds kept, their names), or (None, 0, 0,
+    ()).  A round in which the profiler dropped records (fewer kernels than
+    the fullest round) is not kept."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(rounds):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.max()
+                fn()
+            torch.cuda.synchronize()
+        total, count, names = 0.0, 0, []
+        for e in prof.key_averages():
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or "MaxNanFunctor" in e.key or "MaxOps" in e.key
+                    or e.key.startswith("detred.") or e.self_device_time_total <= 0):
+                continue  # the flush, and the spans' ranges on the device's timeline
+            total += e.self_device_time_total
+            count += e.count
+            names.append(e.key[:80])
+        got.append((count, total / 1e3 / reps, tuple(names)))
+    full = max(c for c, _, _ in got)
+    kept = [g for g in got if g[0] == full and full > 0]
+    if not kept:
+        return None, 0, 0, ()
+    means = sorted(t for _, t, _ in kept)
+    return ((means[len(means) // 2], means[0], means[-1]), full // reps, len(means),
+            kept[0][2])
+
+
+def phase_tree(dev):
+    """The fixed-tree kernel (csrc/det_sum.cu) at the main paths' shapes:
+    det_sum / det_dots on card tensors against det_sum_plain on the same
+    inputs, bitwise (torch.equal), with the launches its plan names; then
+    its device time (median, least and most of five rounds), its host time a
+    call, the plain tree's and the library's (torch.sum(a * b, dim)) beside
+    the bound (each input byte read once, the output written once).
+    Returns the record of BlockCoarse.mv's tree, the largest of the main
+    paths, with every shape's row under ``shapes``."""
+    import torch
+
+    from permon_tpu_torch.core.detred import (det_dots, det_sum, det_sum_plain, parts_layout,
+                                              tree_layout)
+
+    flush = torch.rand(64 << 20, device=dev)  # 256 MB of float32, read before each call
+    rows = []
+    for label, op, nbytes, nout in tree_shapes(dev):
+        if isinstance(op, list):  # det_dots pairs
+            kernel = lambda op=op: det_dots(op)  # noqa: E731
+            plain = lambda op=op: det_sum_plain(torch.stack([a * b for a, b in op]))  # noqa: E731
+            library = lambda op=op: (torch.stack([a for a, _ in op])  # noqa: E731
+                                     * torch.stack([b for _, b in op])).sum(-1)
+            planned = len(parts_layout(op).passes)
+        else:
+            kernel = lambda op=op: det_sum(*op)  # noqa: E731
+            plain = lambda op=op: det_sum_plain(*op)  # noqa: E731
+            library = lambda op=op: torch.sum(op[0] * op[2], dim=op[1])  # noqa: E731
+            planned = len(tree_layout(*op).passes)
+        n0 = det_sum.launches
+        got = kernel()
+        launches = det_sum.launches - n0
+        got = torch.stack(got) if isinstance(got, tuple) else got
+        ref = plain()
+        torch.cuda.synchronize()
+        if launches != planned or not torch.equal(got, ref):
+            raise AssertionError(f"det_sum {label}: {launches} launches (planned {planned}), "
+                                 f"bitwise {torch.equal(got, ref)}")
+        row = dict(shape=label, launches=launches, bound_ms=(nbytes + 8 * nout)
+                   / HBM_BYTES_PER_S * 1e3)
+        text = []
+        for name, fn in (("kernel", kernel), ("plain", plain), ("library", library)):
+            t, kernels, kept, names = tree_device_ms(fn, flush)
+            row.update({f"{name}_ms": t and t[0], f"{name}_ms_range": t and [t[1], t[2]],
+                        f"{name}_kernels": kernels, f"{name}_rounds": kept,
+                        f"{name}_host_us": host_us(fn, n=1000)})
+            row[f"{name}_kernel_names"] = names
+            text.append(f"{name} {fmt_ms(t and t[0])}" + (
+                f" ({t[1]:.4f}-{t[2]:.4f} over {kept} rounds)" if t else "")
+                + f" in {kernels} kernels, host {row[name + '_host_us']:.1f} us a call")
+        rows.append(row)
+        log(f"[tree] {label}: kernel = plain, bitwise, in {launches} launch(es); "
+            + "; ".join(text) + f"; bound {row['bound_ms']:.4f} ms by bytes")
+        if row["kernel_ms"] is not None and row["kernel_kernels"] != launches:
+            raise AssertionError(f"det_sum {label}: {row['kernel_kernels']} kernels timed for "
+                                 f"{launches} launches: {row['kernel_kernel_names']}")
+    main = rows[0]
+    return dict(ms=main["kernel_ms"], kernel_only_ms=main["kernel_ms"],
+                plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+                bound_ms=main["bound_ms"], bound_by="bytes", shapes=rows)
+
+
 def phase_twin(dev):
     import numpy as np
     import torch
@@ -589,6 +730,7 @@ def phase_main(prob, t_host_prob, dev):
     import torch
 
     from permon_tpu_torch.core.convergence import Tolerances
+    from permon_tpu_torch.core.detred import det_sum
     from permon_tpu_torch.core.sell import gather_apply, sell_mv
     from permon_tpu_torch.feti.large import FetiSolverSparse
     from permon_tpu_torch.feti.solve import FetiOptions
@@ -597,7 +739,7 @@ def phase_main(prob, t_host_prob, dev):
     cells, _ = NORTH_STAR
     tol = Tolerances(rtol=1e-5)
     torch.cuda.reset_peak_memory_stats(dev)
-    gather_apply.launches = sell_mv.launches = 0  # count the main path's launches only
+    gather_apply.launches = sell_mv.launches = det_sum.launches = 0  # the main path's only
     solver = FetiSolverSparse(prob, FetiOptions(gluing="nonred", deterministic=True),
                               kplus_dtype=torch.float32, kplus_refine=2, primal_refine=1,
                               device=dev)
@@ -608,7 +750,7 @@ def phase_main(prob, t_host_prob, dev):
     r2 = solver.solve(b_loc=prob.b_loc * 1.5, tol=tol)
     torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
-    launches = gather_apply.launches
+    launches, tree_launches = gather_apply.launches, det_sum.launches
     peak = torch.cuda.max_memory_allocated(dev)
 
     its1 = [r.iterations for r in r1.results]
@@ -627,7 +769,8 @@ def phase_main(prob, t_host_prob, dev):
     log(f"[main] time per dual iteration (warm re-solve / its) "
         f"{1e3 * (t2 - t1) / sum(its2):.3f} ms")
     log(f"[main] assembled residual {resid:.3e}; linearity |x2 - 1.5 x1|/|x2| {lin:.3e}; "
-        f"peak device memory {peak / 2**30:.3f} GiB; gather_apply launches {launches}")
+        f"peak device memory {peak / 2**30:.3f} GiB; gather_apply launches {launches}, "
+        f"det_sum launches {tree_launches}")
     if not all(r.reason == 2 for r in r1.results + r2.results):
         raise AssertionError("north star: a dual solve did not reach reason 2")
     if not resid <= 1e-6:
@@ -636,6 +779,8 @@ def phase_main(prob, t_host_prob, dev):
         raise AssertionError(f"north star: re-solve not linear ({lin})")
     if launches <= 0:
         raise AssertionError("north star: the gather kernel was never launched")
+    if tree_launches <= 0:
+        raise AssertionError("north star: the fixed-tree kernel was never launched")
 
     # where the time of one dual iteration goes (CUDA events, same operators)
     qp, pf = solver.qp, solver._pf
@@ -659,7 +804,7 @@ def phase_main(prob, t_host_prob, dev):
         ref = dict(its1=its1, its2=its2, x1=r1.x_global, ms_per_it=1e3 * (t2 - t1) / sum(its2))
     # phase 16's K: the regularized stencil (not its factors) and its blocks' host diagonal
     kreg = (solver.kplus_post.op, north_star_host_diagonal(prob, solver.kplus_post.op.base.nlp))
-    return launches, ref, kreg
+    return launches, ref, kreg, tree_launches
 
 
 def box_kkt(A, b, far, cap, x):
@@ -3613,11 +3758,12 @@ def main():
     }, dev)
     del lap, jb_a
     gather_rec["floor_ms"] = spmv_rec["floor_ms"]  # one floor for every "ms" of the line
+    tree_rec = phase_tree(dev)
     if "--kernels-only" in sys.argv[1:]:  # development: stop after the kernel phases
         return 0
 
     twin_its = phase_twin(dev)
-    launches, main_ref, kreg = phase_main(prob, t_host_prob, dev)
+    launches, main_ref, kreg, tree_launches = phase_main(prob, t_host_prob, dev)
     del prob
     sell_launches, res64, t64 = phase_qp(jb, jb_rcm, t_host_jb, dev)
     sell_launches += phase_qp_rest(jb_rcm, res64, t64, dev)
@@ -3651,6 +3797,8 @@ def main():
          "source": "permon_tpu_torch/csrc/sell_mv.cu",
          "replaces": "permon_tpu/core/sell.py:504", "launches": sell_launches,
          "launches_examples": examples_sell, "launches_api": api_sell, **spmv_rec},
+        {"name": "det_sum", "route": "cuda", "source": "permon_tpu_torch/csrc/det_sum.cu",
+         "replaces": "permon_tpu/core/detred.py:64", "launches": tree_launches, **tree_rec},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

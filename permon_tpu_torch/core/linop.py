@@ -97,9 +97,10 @@ class DenseTree(Dense):
     """Dense wide (k, m) operator whose matvecs reduce as the FIXED BINARY
     TREE of :func:`~permon_tpu_torch.core.detred.det_sum` instead of a
     GEMV — deterministic by construction, bitwise equal to the JAX
-    package's DenseTree on the CPU.  Chunked along the non-reduced axis
-    (each output element's tree is untouched) to cap the (k, m) product
-    temporary at CHUNK_ELEMS elements."""
+    package's DenseTree on the CPU.  On the CPU chunked along the
+    non-reduced axis (each output element's tree is untouched) to cap the
+    (k, m) product temporary at CHUNK_ELEMS elements; on the card the
+    kernel forms no product temporary, so one call takes all of it."""
 
     CHUNK_ELEMS = 1 << 24
 
@@ -108,24 +109,22 @@ class DenseTree(Dense):
 
         k, m = self.a.shape
         xa = x[None, :].to(self.a.dtype)
-        if k > 1 and k * m > self.CHUNK_ELEMS:
+        if k > 1 and k * m > self.CHUNK_ELEMS and not self.a.is_cuda:
             rows = max(self.CHUNK_ELEMS // max(m, 1), 1)
-            outs = [det_sum(self.a[i0:i0 + rows] * xa, axis=-1)
-                    for i0 in range(0, k, rows)]
+            outs = [det_sum(self.a[i0:i0 + rows], -1, xa) for i0 in range(0, k, rows)]
             return torch.cat(outs).to(x.dtype)
-        return det_sum(self.a * xa, axis=-1).to(x.dtype)
+        return det_sum(self.a, -1, xa).to(x.dtype)
 
     def rmv(self, y):
         from .detred import det_sum
 
         k, m = self.a.shape
         ya = y[:, None].to(self.a.dtype)
-        if m > 1 and k * m > self.CHUNK_ELEMS:
+        if m > 1 and k * m > self.CHUNK_ELEMS and not self.a.is_cuda:
             cols = max(self.CHUNK_ELEMS // max(k, 1), 1)
-            outs = [det_sum(self.a[:, j0:j0 + cols] * ya, axis=0)
-                    for j0 in range(0, m, cols)]
+            outs = [det_sum(self.a[:, j0:j0 + cols], 0, ya) for j0 in range(0, m, cols)]
             return torch.cat(outs).to(y.dtype)
-        return det_sum(self.a * ya, axis=0).to(y.dtype)
+        return det_sum(self.a, 0, ya).to(y.dtype)
 
 
 @dataclasses.dataclass

@@ -1,4 +1,6 @@
-"""The two hand-written Hopper kernels of the port and their wrappers.
+"""The hand-written Hopper kernels of the port: the build of all three, and
+the wrappers of two.  The third, ``csrc/det_sum.cu`` (the fixed-tree
+reduction), is wrapped by :func:`permon_tpu_torch.core.detred.det_sum`.
 
 ``gather_apply`` — the port of the TPU gather kernel
 ``permon_tpu/core/sell.py::_sell_gather_pallas``.  The JAX package runs
@@ -59,8 +61,9 @@ tensors (dtype, layout, device, shapes) once and keeps the ctypes function
 and its fixed arguments (:class:`LaunchPlan`, cached on the operator
 object; ``.replace`` builds a new object and so a new plan).  Every later
 call checks only ``x`` (:func:`check_x`), allocates the output, reads the
-current stream and launches.  Both sources are built with ``nvcc`` at
-first use into ``build/permon_tpu_torch/`` and bound with ctypes.
+current stream and launches.  All three sources are built together with
+``nvcc`` at first use of any into ``build/permon_tpu_torch/`` and bound
+with ctypes.
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ from .linop import LinearOperator
 
 _CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 #: the kernel sources under csrc/; each is one library with a plain C interface
-SOURCES = ("gather_apply", "sell_mv")
+SOURCES = ("gather_apply", "sell_mv", "det_sum")
 #: build directory of the kernel libraries (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "permon_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -164,6 +167,10 @@ def _load(name: str):
     if name not in _libs:
         lib = ctypes.CDLL(str(build_all()[name]))
         vp, ci = ctypes.c_void_p, ctypes.c_int
+        if name == "det_sum":  # (the launch's struct, stream)
+            lib.permon_det_sum.argtypes = [vp, vp]
+            _libs[name] = lib
+            return lib
         # (the operator's struct, x dtype code, x, out, stream)
         getattr(lib, f"permon_{name}").argtypes = [vp, ci, vp, vp, vp]
         if name == "gather_apply":

@@ -709,7 +709,7 @@ class BlockCoarse(LinearOperator):
         with trace("coarse.g_mv"):
             ns, nlp, kf = self.Rb.shape
             w = self.B.rmv(v).reshape(ns, nlp).to(self.Rb.dtype)
-            s = det_sum(self.Rb * w[:, :, None], axis=1)  # (ns, kf), fixed tree over the dofs
+            s = det_sum(self.Rb, 1, w[:, :, None])  # (ns, kf), fixed tree over the dofs
             if self.mesh is None:
                 return s.reshape(-1)[self.inv].to(v.dtype)
             # each column has one owner: the other ranks add exact zeros

@@ -146,8 +146,8 @@ class Projector(Struct):
                 if self.ggt_inv.shape[0] >= EXPLICIT_INV_MIN_K:
                     from ..core.detred import det_sum
 
-                    return det_sum(self.ggt_inv * v[None, :].to(self.ggt_inv.dtype),
-                                   axis=-1).to(v.dtype)
+                    return det_sum(self.ggt_inv, -1,
+                                   v[None, :].to(self.ggt_inv.dtype)).to(v.dtype)
                 return (self.ggt_inv @ v.to(self.ggt_inv.dtype)).to(v.dtype)
             vc = v.to(self.ggt_chol.dtype)[:, None]
             return torch.cholesky_solve(vc, self.ggt_chol)[:, 0].to(v.dtype)

@@ -34,9 +34,12 @@ device-to-host copy), ``kplus.solve`` (one forward and backward pass of
 core/band.py's factors) and ``kplus.replay`` inside it (the replay of the
 pass's CUDA graph, on a card), ``gather.apply`` (one per core/sell.py
 gather_apply call), ``projector.apply_p`` and ``projector.apply_cp`` (the
-coarse-problem solve inside it; qp/projector.py), and ``coarse.g_mv`` /
+coarse-problem solve inside it; qp/projector.py), ``coarse.g_mv`` /
 ``coarse.g_rmv`` (one G or G' apply of feti/large.py's BlockCoarse, the
-coarse operator of the rigid-body nullspace).  The counts by parent give
+coarse operator of the rigid-body nullspace), and ``detred.sum`` (one
+fixed-tree reduction of core/detred.py: ``det_sum``, ``det_dot``,
+``det_dots``) with ``detred.kernel`` inside it (the launches of its tree,
+on a card).  The counts by parent give
 the F applies by purpose: ``kplus.solve`` under ``cg.iteration``,
 ``feti.dualize`` or ``feti.post``; and the G applies by purpose:
 ``coarse.g_mv`` / ``coarse.g_rmv`` under ``projector.apply_p``,

@@ -948,3 +948,189 @@ def test_profiler_attributes_replayed_kernels_to_kplus_solve(cuda_device, monkey
     eager = device_seconds()
     assert replay > 0 and eager > 0
     assert abs(replay - eager) <= 0.1 * eager, (replay, eager)
+
+
+# -- the fixed-tree reduction (csrc/det_sum.cu) ----------------------------------
+
+TREE_LENGTHS = [1, 2, 3, 5, 64, 1000, 13440, 94563, 245850]
+
+
+def _wide(rng, shape, dtype, device):
+    """Values over many binades, so that another pairing rounds otherwise."""
+    v = rng.standard_normal(shape) * 10.0 ** rng.uniform(-6, 6, shape)
+    return torch.as_tensor(v, dtype=dtype, device=device)
+
+
+def _launches_of(x, axis=-1, y=None):
+    from permon_tpu_torch.core.detred import tree_layout
+
+    return len(tree_layout(x, axis, y).passes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", TREE_LENGTHS)
+def test_det_sum_kernel_equals_plain_tree_bitwise(cuda_device, n, dtype):
+    """Along the last axis (2 rows) and along axis 0 (3 columns), alone and
+    times a broadcast second factor: torch.equal to the plain tree on the
+    card and on the CPU, one launch a tree (two for a few long rows)."""
+    from permon_tpu_torch.core.detred import det_sum, det_sum_plain
+
+    rng = np.random.RandomState(n)
+    x, xt = _wide(rng, (2, n), dtype, cuda_device), _wide(rng, (n, 3), dtype, cuda_device)
+    w = _wide(rng, n, dtype, cuda_device)
+    for args in ((x, -1, None), (x, -1, w[None, :]), (xt, 0, None), (xt, 0, w[:, None])):
+        n0 = det_sum.launches
+        got = det_sum(*args)
+        assert det_sum.launches == n0 + _launches_of(*args) <= n0 + 2
+        ref = det_sum_plain(*args)
+        cpu = det_sum_plain(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.equal(got, ref) and torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("npairs", [1, 2, 3])
+def test_det_dots_kernel_rows_are_each_pairs_det_dot(cuda_device, npairs, dtype):
+    from permon_tpu_torch.core.detred import det_dot, det_dots, det_sum, det_sum_plain
+
+    rng = np.random.RandomState(10 + npairs)
+    vecs = [_wide(rng, 245850, dtype, cuda_device) for _ in range(npairs + 1)]
+    pairs = [(vecs[k], vecs[k + 1]) for k in range(npairs)]
+    n0 = det_sum.launches
+    got = det_dots(pairs)
+    assert det_sum.launches == n0 + 2  # one partial pass and one final pass for all pairs
+    for (x, y), g in zip(pairs, got):
+        assert torch.equal(g, det_dot(x, y)) and torch.equal(g, det_sum_plain(x * y))
+
+
+def test_det_dots_kernel_takes_strided_pairs_and_refuses_mixed_lengths(cuda_device):
+    """Strided or 2-D vectors are read as contiguous copies, in one launch set
+    with the contiguous pairs; pairs of two lengths or dtypes raise."""
+    from permon_tpu_torch.core.detred import det_dot, det_dots, det_sum
+
+    rng = np.random.RandomState(31)
+    a = _wide(rng, (3, 94563), torch.float64, cuda_device)
+    b = _wide(rng, (94563, 2), torch.float64, cuda_device)
+    pairs = [(a[0], a[1]), (b[:, 0], a[2]), (a[1].reshape(3, 31521), b[:, 1])]
+    n0 = det_sum.launches
+    got = det_dots(pairs)
+    assert det_sum.launches == n0 + 2
+    for (x, y), g in zip(pairs, got):
+        assert torch.equal(g, det_dot(x.contiguous(), y.contiguous()))
+    with pytest.raises(ValueError):
+        det_dots([(a[0], a[1]), (a[0, :100], a[1, :100])])
+    with pytest.raises(ValueError):
+        det_dots([(a[0], a[1]), (a[0].float(), a[1].float())])
+
+
+@pytest.mark.parametrize("bad", ["int32", "float16", "bfloat16", "complex64", "mixed"])
+def test_det_sum_kernel_raises_on_other_dtypes(cuda_device, bad):
+    from permon_tpu_torch.core.detred import det_dot, det_sum
+
+    x = torch.ones(4, 100, device=cuda_device)
+    if bad == "mixed":
+        with pytest.raises(TypeError):
+            det_sum(x, -1, x.double())
+        return
+    dt = getattr(torch, bad)
+    with pytest.raises(TypeError):
+        det_sum(x.to(dt))
+    with pytest.raises(TypeError):
+        det_dot(x.to(dt)[0], x.to(dt)[1])
+
+
+def _plain_trees(monkeypatch):
+    """Every det_sum call site on the plain tree (the kernel's arithmetic,
+    op by op)."""
+    from permon_tpu_torch.core import detred
+    from permon_tpu_torch.feti import large
+
+    def plain(x, axis=-1, y=None):
+        return detred.det_sum_plain(x, axis, y)
+
+    def plain_dots(pairs):
+        return tuple(detred.det_sum_plain(torch.stack([(x * y).reshape(-1) for x, y in pairs])))
+
+    monkeypatch.setattr(detred, "det_sum", plain)
+    monkeypatch.setattr(detred, "det_dots", plain_dots)
+    monkeypatch.setattr(large, "det_sum", plain)
+
+
+def test_block_coarse_dense_tree_and_coarse_inverse_on_kernel_equal_plain(cuda_device,
+                                                                         monkeypatch):
+    """BlockCoarse.mv, DenseTree.mv / .rmv and apply_cp's explicit-inverse
+    tree on the card, bitwise their results on the plain tree; one launch a
+    tree, two for long rows (DenseTree.mv's 48 rows of 94,563)."""
+    from permon_tpu_torch.core.detred import det_sum
+    from permon_tpu_torch.core.linop import DenseTree, VStack
+    from permon_tpu_torch.feti.large import assemble_qp_sparse, block_coarse_from_R
+    from permon_tpu_torch.problems import build_obstacle_elasticity
+    from permon_tpu_torch.qp.projector import EXPLICIT_INV_MIN_K, Projector
+
+    prob, BI, cI, _ = build_obstacle_elasticity((6, 6, 6), (2, 2, 1))
+    opts = FetiOptions(gluing="nonred", nullspace="rbm", dirichlet_by_B=False)
+    qp_g, *_ = assemble_qp_sparse(prob, opts, BI=BI, cI=cI, device=cuda_device)
+    G = block_coarse_from_R(qp_g.R, VStack((qp_g.BE, qp_g.BI)))
+    rng = np.random.RandomState(21)
+    k = max(540, EXPLICIT_INV_MIN_K)
+    tree = DenseTree.create(_wide(rng, (48, 94563), torch.float64, cuda_device))
+    inv = _wide(rng, (k, k), torch.float64, cuda_device)
+    pf = Projector(G=tree, ggt_chol=None, ggt_inv=inv)
+    w = torch.zeros(G.Rb.shape[:2], dtype=torch.float64, device=cuda_device)
+    calls = [
+        (lambda v: G.mv(v), _wide(rng, G.shape[1], torch.float64, cuda_device),
+         _launches_of(G.Rb, 1, w[:, :, None])),
+        (tree.mv, _wide(rng, 94563, torch.float64, cuda_device), 2),
+        (tree.rmv, _wide(rng, 48, torch.float64, cuda_device), 1),
+        (pf.apply_cp, _wide(rng, k, torch.float64, cuda_device), 1),
+    ]
+    got = []
+    for fn, v, launches in calls:
+        n0 = det_sum.launches
+        got.append(fn(v))
+        assert det_sum.launches == n0 + launches
+    _plain_trees(monkeypatch)
+    for (fn, v, _), g in zip(calls, got):
+        assert torch.equal(g, fn(v))
+
+
+@pytest.mark.parametrize("which", ["poisson", "elastic"])
+def test_deterministic_solve_on_kernel_trees_equals_plain_trees(cuda_device, monkeypatch,
+                                                                which):
+    """A deterministic FetiSolverSparse solve (f32 factors, 2 refinement
+    steps, one defect pass) takes the same iterations and a bitwise equal
+    x_global with every tree on the kernel or on the plain tree; on the
+    kernel every ``detred.sum`` span holds one ``detred.kernel``.  Poisson
+    (G a DenseTree) and elasticity (G a BlockCoarse: the dense-G cutoff
+    lowered, as the 1.18M-dof box passes it)."""
+    from permon_tpu_torch.feti.large import BlockCoarse
+    from permon_tpu_torch.problems import build_sparse_elasticity
+    from permon_tpu_torch.qp import transforms
+    from permon_tpu_torch.sys import tracing
+
+    if which == "poisson":
+        prob, extra = build_sparse((12,) * 3, (2,) * 3), {}
+    else:
+        monkeypatch.setattr(transforms, "DENSE_G_ELEMENTS", 16)
+        prob = build_sparse_elasticity((8, 8, 8), (2, 2, 2))
+        extra = dict(nullspace="rbm", coarse="sparse", dirichlet_by_B=False)
+
+    def run():
+        s = FetiSolverSparse(prob, FetiOptions(gluing="nonred", deterministic=True, **extra),
+                             kplus_dtype=torch.float32, kplus_refine=2, primal_refine=1,
+                             device=cuda_device)
+        tracing.reset()
+        r = s.solve(b_loc=1.5 * prob.b_loc, tol=Tolerances(rtol=1e-6))
+        assert which == "poisson" or isinstance(s._pf.G, BlockCoarse)
+        return r, dict(tracing.events)
+
+    r_kernel, ev = run()
+    assert ev["detred.sum"][0] > 0 and ev["detred.kernel"][0] == ev["detred.sum"][0]
+    _plain_trees(monkeypatch)
+    r_plain, ev_plain = run()
+    assert "detred.kernel" not in ev_plain
+    assert ([c.iterations for c in r_kernel.results]
+            == [c.iterations for c in r_plain.results])
+    assert all(c.reason == 2 for c in r_kernel.results)
+    np.testing.assert_array_equal(r_kernel.x_global, r_plain.x_global)

@@ -220,3 +220,15 @@ def test_block_coarse_spans_count_the_g_applies(elastic_spans):
     # each G apply runs one gather (B' in G, B in G')
     assert par[("coarse.g_mv", "gather.apply")] == events["coarse.g_mv"][0]
     assert par[("coarse.g_rmv", "gather.apply")] == events["coarse.g_rmv"][0]
+
+
+def test_fixed_trees_open_detred_sum_and_launch_nothing_on_the_cpu(elastic_spans):
+    """Every G apply reduces its bases over the dofs as one fixed tree (the
+    span ``detred.sum``, a child of ``coarse.g_mv``); the deterministic
+    CG's dots are trees too.  On the CPU no tree launches the kernel, so no
+    ``detred.kernel`` span opens."""
+    _, events, par = elastic_spans
+    assert par[("coarse.g_mv", "detred.sum")] == events["coarse.g_mv"][0]
+    assert par[("cg.iteration", "detred.sum")] > 0
+    assert events["detred.sum"][0] == sum(n for (p, s), n in par.items() if s == "detred.sum")
+    assert "detred.kernel" not in events
